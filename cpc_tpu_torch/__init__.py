@@ -3,9 +3,12 @@
 It sits beside the JAX package, which stays the reference it is held
 against (tests/test_torch_port_*.py), mirrors its module layout and names,
 and imports no jax. Ported so far: the feature-extraction path (configs,
-waveform prep, conv encoder, GRU gar with the hand-written CUDA recurrence
-kernel, CPC wrapper, weights from the JAX package, `extract_features` and
-its CLI). ROADMAP.md lists what waits.
+waveform prep, conv encoder, GRU gar, CPC wrapper, weights from the JAX
+package, `extract_features` and its CLI) and single-device training
+(same-step InfoNCE, fused heads, optax's Adam, trainer with exact resume,
+`python -m cpc_tpu_torch.train`). The GRU recurrence and the fused heads +
+InfoNCE, forward and backward, are hand-written CUDA kernels (csrc/).
+ROADMAP.md lists what waits.
 
     import torch
     from cpc_tpu_torch import CPCModel, presets, extract_features

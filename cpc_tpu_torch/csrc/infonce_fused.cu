@@ -1,0 +1,375 @@
+// Fused prediction heads + same-step InfoNCE, forward and backward, for
+// Hopper (sm_90a), bound to Python with ctypes
+// (cpc_tpu_torch/ops/infonce_fused.py; built by cpc_tpu_torch/ops/_build.py).
+//
+// Replaces the TPU kernels of cpc_tpu/ops/infonce_fused.py: `_fwd_kernel`
+// (launched by `_pallas_fwd`) and `_bwd_kernel` (launched by `_bwd_rule`).
+// The heads product p = c_tm @ W, and the folds of dp into dc and dW, stay
+// plain matrix products outside, as the JAX package leaves them to XLA.
+//
+// Inputs: p (T, B, K*D) and z (T, C, D) in the wire dtype (bf16 or fp32),
+// and `shift`. For target step tau and head k, the prediction rows are
+// p[t, :, kD:(k+1)D] with t = clamp(tau-1-k, 0, T-1), as the Pallas index map
+// clamps; they score against the C candidates z[tau] in fp32. Row b's
+// positive is column shift + b; argmax ties go to the first maximum, as
+// jnp.argmax. Outputs are tau-indexed, flat row k*B + b:
+//
+// FORWARD, heads_nll_fwd_kernel: nll, correct and the row log-sum-exp lse,
+// each (T, K*B) fp32. One block per (tau, k, 64-row tile): T*K = 1 536 blocks
+// at the slice (T = 128, K = 12, B = C = 64, D = 512) for 132 SMs. The TPU
+// kernel held the whole (K*B, C) fp32 score tile in VMEM (196 KB at the
+// slice); here the block sweeps C in 64-column tiles and D in 16-deep
+// shared-memory stages, keeping a running max, sum, positive score and
+// argmax per row, so neither C nor D is bounded. Rows outside the window
+// (tau = 0, t >= T-K) are computed on the clamped block and masked by the
+// caller, as in the JAX package.
+//
+// BACKWARD, given g_nll (T, K*B) fp32 and the forward's lse:
+//   delta[tau, k, b, c] = (softmax - onehot) * g_nll * valid(tau, k),
+//   valid = 0 <= tau-1-k < T-K;
+//   dz[tau] = sum_k delta[tau, k]^T p_k        (T, C, D) fp32
+//   dp_k[tau] = delta[tau, k] z[tau]           (K, T, B, D) in p's dtype
+// dz[tau] sums over all K heads, so a (tau, k) grid needs a reduction over
+// k, and the scores need the full contraction over D before any output can
+// be formed. One block per tau that loops over k would leave only T = 128
+// blocks. So the backward is three passes with full grids and no atomics:
+// heads_delta_kernel (per (tau, k, row tile), recomputes the scores and
+// writes delta to an fp32 scratch of T*K*B*C floats, 25 MB at the slice),
+// heads_dz_kernel (per (tau, C tile, D tile), contracts over the K*B rows)
+// and heads_dp_kernel (per (tau, k, B tile, D tile), contracts over C).
+// Using the saved lse, softmax is one exp per score, with no second sweep
+// over the columns for the max and sum. Out-of-window (tau, k) blocks write
+// exact zeros, as the Pallas validity mask makes them.
+//
+// What bounds it on this card: the scores are 2*T*K*B*C*D = 6.4 GFLOP at the
+// slice (forward, and again in the backward's recompute), and the two
+// backward contractions as much again each, all on the SIMT fp32 pipe
+// through cpc::tile_mm (tensor cores, wgmma, are later work). Each block
+// re-reads its p rows once per column tile; at C = 64 there is one tile.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstddef>
+
+#include "common.cuh"
+
+namespace {
+
+using cpc::from_f32;
+using cpc::kTile;
+using cpc::kTileThreads;
+using cpc::TileSmem;
+using cpc::tile_mm;
+using cpc::to_f32;
+
+// The scores of one (tau, k, row tile) against columns [c0, c0 + 64):
+// acc[i][j] = p[t, b0 + ty*4 + i, kD:(k+1)D] . z[tau, c0 + tx*4 + j].
+template <typename T>
+__device__ __forceinline__ void score_tile(const T* __restrict__ p_blk,
+                                           const T* __restrict__ z_blk,
+                                           size_t kd, int b0, int batch,
+                                           int c0, int pool, int D,
+                                           float (&acc)[4][4], TileSmem& s) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  tile_mm<true, true>(
+      D,
+      [&](int d, int m) -> float {
+        const int b = b0 + m;
+        return b < batch ? to_f32(p_blk[static_cast<size_t>(b) * kd + d])
+                         : 0.f;
+      },
+      [&](int d, int n) -> float {
+        const int c = c0 + n;
+        return c < pool ? to_f32(z_blk[static_cast<size_t>(c) * D + d]) : 0.f;
+      },
+      acc, s);
+}
+
+// Grid (T*K, ceil(B / 64)); block kTileThreads.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+    heads_nll_fwd_kernel(const T* __restrict__ p, const T* __restrict__ z,
+                         float* __restrict__ nll, float* __restrict__ cor,
+                         float* __restrict__ lse, int steps, int batch,
+                         int pool, int K, int D, int shift) {
+  __shared__ TileSmem smem;
+  __shared__ float ss[kTile][kTile + 1];
+  const int tau = blockIdx.x / K, k = blockIdx.x % K;
+  const int b0 = blockIdx.y * kTile;
+  int t = tau - 1 - k;
+  t = t < 0 ? 0 : (t > steps - 1 ? steps - 1 : t);
+  const size_t kd = static_cast<size_t>(K) * D;
+  const T* p_blk = p + static_cast<size_t>(t) * batch * kd +
+                   static_cast<size_t>(k) * D;
+  const T* z_blk = z + static_cast<size_t>(tau) * pool * D;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int row = threadIdx.x;
+  const int b = b0 + row;
+  const bool owner = row < kTile && b < batch;
+  const int label = shift + b;
+
+  float m = -INFINITY, l = 0.f, s_lab = 0.f, best = -INFINITY;
+  int best_c = 0;
+  for (int c0 = 0; c0 < pool; c0 += kTile) {
+    float acc[4][4];
+    score_tile(p_blk, z_blk, kd, b0, batch, c0, pool, D, acc, smem);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ss[ty * 4 + i][tx * 4 + j] = acc[i][j];
+    __syncthreads();
+    if (owner) {
+      const int n_cols = pool - c0 < kTile ? pool - c0 : kTile;
+      for (int c = 0; c < n_cols; ++c) {
+        const float s = ss[row][c];
+        if (s > m) {  // online log-sum-exp
+          l = l * expf(m - s) + 1.f;
+          m = s;
+        } else {
+          l += expf(s - m);
+        }
+        if (s > best) {  // strict: the first maximum wins
+          best = s;
+          best_c = c0 + c;
+        }
+        if (c0 + c == label) s_lab = s;
+      }
+    }
+    __syncthreads();
+  }
+  if (owner) {
+    const size_t o = static_cast<size_t>(tau) * K * batch +
+                     static_cast<size_t>(k) * batch + b;
+    const float lse_v = m + logf(l);
+    nll[o] = lse_v - s_lab;
+    cor[o] = best_c == label ? 1.f : 0.f;
+    lse[o] = lse_v;
+  }
+}
+
+// Backward pass 1. Grid (T*K, ceil(B / 64)). delta (T, K, B, C) fp32.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+    heads_delta_kernel(const float* __restrict__ g,
+                       const float* __restrict__ lse, const T* __restrict__ p,
+                       const T* __restrict__ z, float* __restrict__ delta,
+                       int steps, int batch, int pool, int K, int D, int shift,
+                       int tp) {
+  __shared__ TileSmem smem;
+  const int tau = blockIdx.x / K, k = blockIdx.x % K;
+  const int b0 = blockIdx.y * kTile;
+  const int t = tau - 1 - k;
+  float* out = delta + (static_cast<size_t>(tau) * K + k) * batch * pool;
+  if (t < 0 || t >= tp) {  // out of window: exact zeros (block-uniform)
+    for (size_t e = threadIdx.x; e < static_cast<size_t>(kTile) * pool;
+         e += kTileThreads) {
+      const int bb = b0 + static_cast<int>(e / pool);
+      if (bb < batch) out[static_cast<size_t>(bb) * pool + e % pool] = 0.f;
+    }
+    return;
+  }
+  const size_t kd = static_cast<size_t>(K) * D;
+  const T* p_blk = p + static_cast<size_t>(t) * batch * kd +
+                   static_cast<size_t>(k) * D;
+  const T* z_blk = z + static_cast<size_t>(tau) * pool * D;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int c0 = 0; c0 < pool; c0 += kTile) {
+    float acc[4][4];
+    score_tile(p_blk, z_blk, kd, b0, batch, c0, pool, D, acc, smem);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int bb = b0 + ty * 4 + i;
+      if (bb >= batch) continue;
+      const size_t o = static_cast<size_t>(tau) * K * batch +
+                       static_cast<size_t>(k) * batch + bb;
+      const float row_lse = lse[o], row_g = g[o];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + tx * 4 + j;
+        if (c >= pool) continue;
+        const float soft = expf(acc[i][j] - row_lse);
+        out[static_cast<size_t>(bb) * pool + c] =
+            (soft - (c == shift + bb ? 1.f : 0.f)) * row_g;
+      }
+    }
+  }
+}
+
+// Backward pass 2. Grid (T, ceil(C / 64), ceil(D / 64)).
+// dz[tau, c, d] = sum_{k, b} delta[tau, k, b, c] * p[tau-1-k, b, kD + d].
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+    heads_dz_kernel(const float* __restrict__ delta, const T* __restrict__ p,
+                    float* __restrict__ dz, int batch, int pool, int K, int D,
+                    int tp) {
+  __shared__ TileSmem smem;
+  const int tau = blockIdx.x;
+  const int c0 = blockIdx.y * kTile, d0 = blockIdx.z * kTile;
+  const size_t kd = static_cast<size_t>(K) * D;
+  const float* dl = delta + static_cast<size_t>(tau) * K * batch * pool;
+  float acc[4][4] = {};
+  tile_mm<false, false>(
+      K * batch,
+      [&](int r, int m) -> float {  // r = k*B + b
+        const int c = c0 + m;
+        return c < pool ? dl[static_cast<size_t>(r) * pool + c] : 0.f;
+      },
+      [&](int r, int n) -> float {
+        const int d = d0 + n, k = r / batch, b = r % batch;
+        const int t = tau - 1 - k;
+        if (d >= D || t < 0 || t >= tp) return 0.f;
+        return to_f32(p[(static_cast<size_t>(t) * batch + b) * kd +
+                        static_cast<size_t>(k) * D + d]);
+      },
+      acc, smem);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = c0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = d0 + tx * 4 + j;
+      if (c < pool && d < D)
+        dz[(static_cast<size_t>(tau) * pool + c) * D + d] = acc[i][j];
+    }
+  }
+}
+
+// Backward pass 3. Grid (T*K, ceil(B / 64), ceil(D / 64)); dp (K, T, B, D).
+// dp[k, tau, b, d] = sum_c delta[tau, k, b, c] * z[tau, c, d].
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+    heads_dp_kernel(const float* __restrict__ delta, const T* __restrict__ z,
+                    T* __restrict__ dp, int steps, int batch, int pool, int K,
+                    int D, int tp) {
+  __shared__ TileSmem smem;
+  const int tau = blockIdx.x / K, k = blockIdx.x % K;
+  const int b0 = blockIdx.y * kTile, d0 = blockIdx.z * kTile;
+  T* out = dp + (static_cast<size_t>(k) * steps + tau) * batch * D;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int t = tau - 1 - k;
+  float acc[4][4] = {};
+  if (t >= 0 && t < tp) {  // block-uniform
+    const float* dl = delta + (static_cast<size_t>(tau) * K + k) * batch * pool;
+    const T* z_blk = z + static_cast<size_t>(tau) * pool * D;
+    tile_mm<true, false>(
+        pool,
+        [&](int c, int m) -> float {
+          const int b = b0 + m;
+          return b < batch ? dl[static_cast<size_t>(b) * pool + c] : 0.f;
+        },
+        [&](int c, int n) -> float {
+          const int d = d0 + n;
+          return d < D ? to_f32(z_blk[static_cast<size_t>(c) * D + d]) : 0.f;
+        },
+        acc, smem);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int b = b0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = d0 + tx * 4 + j;
+      if (b < batch && d < D)
+        out[static_cast<size_t>(b) * D + d] = from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+bool grid_ok(long long x, long long y, long long z) {
+  return x >= 1 && x <= 2147483647LL && y >= 1 && y <= 65535 && z >= 1 &&
+         z <= 65535;
+}
+
+int tiles(int n) { return (n + kTile - 1) / kTile; }
+
+}  // namespace
+
+extern "C" {
+
+// Launches the forward on `stream` of `device` and returns
+// cudaGetLastError() (0 on success). p (T, B, K*D) and z (T, C, D) in bf16
+// (bf16 != 0) or fp32; nll, cor, lse (T, K*B) fp32. Does not synchronise.
+int heads_nll_fwd(const void* p, const void* z, void* nll, void* cor,
+                  void* lse, int steps, int batch, int pool, int K, int D,
+                  int shift, int bf16, int device, void* stream) {
+  if (steps < 1 || batch < 1 || pool < 1 || K < 1 || D < 1 ||
+      !grid_ok(static_cast<long long>(steps) * K, tiles(batch), 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(steps * K, tiles(batch));
+  float* n = static_cast<float*>(nll);
+  float* c = static_cast<float*>(cor);
+  float* l = static_cast<float*>(lse);
+  if (bf16) {
+    heads_nll_fwd_kernel<__nv_bfloat16><<<grid, kTileThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(p),
+        static_cast<const __nv_bfloat16*>(z), n, c, l, steps, batch, pool, K,
+        D, shift);
+  } else {
+    heads_nll_fwd_kernel<float><<<grid, kTileThreads, 0, s>>>(
+        static_cast<const float*>(p), static_cast<const float*>(z), n, c, l,
+        steps, batch, pool, K, D, shift);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the backward's three kernels on `stream` and returns the first
+// launch error (0 on success). g, lse (T, K*B) fp32; p, z as the forward;
+// tp = T - K. Outputs dz (T, C, D) fp32 and dp (K, T, B, D) in p's dtype;
+// scratch delta (T, K, B, C) fp32. Does not synchronise.
+int heads_nll_bwd(const void* g, const void* lse, const void* p,
+                  const void* z, void* delta, void* dz, void* dp, int steps,
+                  int batch, int pool, int K, int D, int shift, int tp,
+                  int bf16, int device, void* stream) {
+  if (steps < 1 || batch < 1 || pool < 1 || K < 1 || D < 1 ||
+      !grid_ok(static_cast<long long>(steps) * K, tiles(batch), tiles(D)) ||
+      !grid_ok(steps, tiles(pool), tiles(D))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gf = static_cast<const float*>(g);
+  const float* lf = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  float* dzf = static_cast<float*>(dz);
+  const dim3 g1(steps * K, tiles(batch));
+  const dim3 g2(steps, tiles(pool), tiles(D));
+  const dim3 g3(steps * K, tiles(batch), tiles(D));
+  if (bf16) {
+    using B16 = __nv_bfloat16;
+    const B16* pb = static_cast<const B16*>(p);
+    const B16* zb = static_cast<const B16*>(z);
+    heads_delta_kernel<B16><<<g1, kTileThreads, 0, s>>>(
+        gf, lf, pb, zb, dl, steps, batch, pool, K, D, shift, tp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    heads_dz_kernel<B16><<<g2, kTileThreads, 0, s>>>(dl, pb, dzf, batch, pool,
+                                                     K, D, tp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    heads_dp_kernel<B16><<<g3, kTileThreads, 0, s>>>(
+        dl, zb, static_cast<B16*>(dp), steps, batch, pool, K, D, tp);
+  } else {
+    const float* pf = static_cast<const float*>(p);
+    const float* zf = static_cast<const float*>(z);
+    heads_delta_kernel<float><<<g1, kTileThreads, 0, s>>>(
+        gf, lf, pf, zf, dl, steps, batch, pool, K, D, shift, tp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    heads_dz_kernel<float><<<g2, kTileThreads, 0, s>>>(dl, pf, dzf, batch,
+                                                       pool, K, D, tp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    heads_dp_kernel<float><<<g3, kTileThreads, 0, s>>>(
+        dl, zf, static_cast<float*>(dp), steps, batch, pool, K, D, tp);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

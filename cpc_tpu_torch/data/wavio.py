@@ -1,9 +1,9 @@
-"""WAV decode in numpy, for the port's `--extract` CLI.
+"""WAV read and write in numpy.
 
-A copy of `cpc_tpu/data/wavio.py::read_wav` and of the WAV branch of
-`cpc_tpu/data/dataset.py::decode_mono`: the port cannot import
-`cpc_tpu.data` without jax. RIFF/WAVE, PCM 8/16/24/32-bit and IEEE float
-32/64, any channel count (averaged to mono by `decode_mono`). FLAC and
+A copy of `cpc_tpu/data/wavio.py` (`read_wav`, `wav_info`, `write_wav`) and
+of the WAV branch of `cpc_tpu/data/dataset.py::decode_mono`: the port cannot
+import `cpc_tpu.data` without jax. RIFF/WAVE, PCM 8/16/24/32-bit and IEEE
+float 32/64, any channel count (averaged to mono by `decode_mono`). FLAC and
 resampling wait (ROADMAP.md §A8); they raise here.
 """
 
@@ -70,6 +70,60 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     else:
         x = x.reshape(-1, 1)
     return x, sample_rate
+
+
+def wav_info(path: str) -> Tuple[int, int]:
+    """(num_frames, sample_rate) from the RIFF header alone, without
+    decoding a sample: the dataset's snippet count reads it."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+        if len(head) < 12 or head[0:4] != b"RIFF" or head[8:12] != b"WAVE":
+            raise ValueError(f"{path}: not a RIFF/WAVE file")
+        n_channels = bits = None
+        data_size = None
+        sample_rate = None
+        while True:
+            hdr = f.read(8)
+            if len(hdr) < 8:
+                break
+            cid = hdr[0:4]
+            size = struct.unpack_from("<I", hdr, 4)[0]
+            if cid == b"fmt ":
+                body = f.read(size)
+                _, n_channels, sample_rate, _, _, bits = struct.unpack_from(
+                    "<HHIIHH", body, 0)
+            elif cid == b"data":
+                data_size = size
+                f.seek(size + (size & 1), 1)
+            else:
+                f.seek(size + (size & 1), 1)
+            if cid == b"fmt " and size & 1:
+                f.seek(1, 1)
+    if n_channels is None or data_size is None:
+        raise ValueError(f"{path}: missing fmt/data chunk")
+    bytes_per_frame = n_channels * max(1, bits // 8)
+    return data_size // bytes_per_frame, sample_rate
+
+
+def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
+    """Writes mono/multichannel float32 [-1, 1] as PCM16."""
+    x = np.asarray(samples)
+    if x.ndim == 1:
+        x = x[:, None]
+    pcm = np.clip(np.round(x * 32767.0), -32768, 32767).astype("<i2")
+    n_channels = pcm.shape[1]
+    byte_rate = sample_rate * n_channels * 2
+    data = pcm.tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF")
+        f.write(struct.pack("<I", 36 + len(data)))
+        f.write(b"WAVE")
+        f.write(b"fmt ")
+        f.write(struct.pack("<IHHIIHH", 16, 1, n_channels, sample_rate,
+                            byte_rate, n_channels * 2, 16))
+        f.write(b"data")
+        f.write(struct.pack("<I", len(data)))
+        f.write(data)
 
 
 def _extensible_subformat(path: str, fmt_body: bytes) -> int:

@@ -10,6 +10,10 @@ port's `state_dict`. Layout facts it encodes (as `cpc_tpu/interop.py`):
   * the heads' Dense kernel (d_ar, K*d_enc) -> Linear weight (K*d_enc, d_ar),
     so output feature k*d_enc + e is row e of W_k.
 
+The mapping is a pure re-layout, so it carries a gradient pytree of the
+same structure across too (tests/test_torch_port_train_step.py compares
+every gradient through it).
+
 A JAX workdir hands its weights over as one `.npz` of the pytree flattened
 to '/'-joined keys (`flatten_params`); `unflatten_params` reads it back.
 Neither side needs the other framework installed for the file itself.

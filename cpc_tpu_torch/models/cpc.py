@@ -76,6 +76,13 @@ class CPCModel(nn.Module):
         z = self.encoder(x)
         return z, self.gar(z)
 
+    def latents_tm(self, x: torch.Tensor):
+        """(z (B, T, d_enc), c_tm (T, B, d_ar)): c in the time-major layout
+        the fused heads + InfoNCE loss takes, which is the recurrence's own
+        output layout, so no transpose is made on either side."""
+        z = self.encoder(x)
+        return z, self.gar(z, time_major_out=True)
+
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Standalone latents z (feature-extraction API)."""
         return self.encoder(x)

@@ -42,6 +42,20 @@ def same_padding(t_in: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
+def _conv1d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            stride: int) -> torch.Tensor:
+    """F.conv1d, except for reduced precision on the CPU: there oneDNN's
+    bf16 conv1d (torch 2.13) returns wrong values for some lengths (an
+    input length divisible by the stride, measured off by up to 5 at
+    outputs of magnitude 5), so the CPU runs the product in fp32 and rounds
+    it once, which is what a bf16 conv with fp32 accumulation computes, in
+    the backward too."""
+    if h.device.type == "cpu" and h.dtype != torch.float32:
+        return F.conv1d(h.float(), w.float(), b.float(),
+                        stride=stride).to(h.dtype)
+    return F.conv1d(h, w, b, stride=stride)
+
+
 class _Conv1d(nn.Module):
     """Conv1d weights in torch's (out, in, k) layout with flax's init
     (lecun_normal kernel, zero bias); the padding is the encoder's."""
@@ -103,8 +117,8 @@ class ConvEncoder(nn.Module):
             conv = getattr(self, f"conv{i}")
             if cfg.padding == "SAME":
                 h = F.pad(h, same_padding(h.shape[-1], k, s))
-            h = F.conv1d(h, conv.weight.to(self.dtype),
-                         conv.bias.to(self.dtype), stride=s)
+            h = _conv1d(h, conv.weight.to(self.dtype),
+                        conv.bias.to(self.dtype), s)
             if cfg.norm == "layer":
                 norm = getattr(self, f"norm{i}")
                 h = F.layer_norm(h.transpose(1, 2).float(), norm.normalized_shape,

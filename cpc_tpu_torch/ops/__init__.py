@@ -1,2 +1,3 @@
-"""Ops of the PyTorch port: waveform preparation and the GRU recurrence
-kernel (CUDA, with its plain PyTorch version)."""
+"""Ops of the PyTorch port: waveform preparation, InfoNCE, and the CUDA
+kernels (GRU recurrence, fused heads + InfoNCE) with their plain PyTorch
+versions."""

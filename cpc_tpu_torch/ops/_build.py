@@ -1,12 +1,14 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-`csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`) into one shared
-library with a plain C interface, under `build/kernels/` at the root of the
-checkout, keyed by a hash of the sources and flags: an unchanged tree
-reuses its library, a changed one builds anew. The sources include no
-PyTorch header, so a build takes seconds (against minutes for
-`torch.utils.cpp_extension.load`). Pointers and the stream cross as Python
-ints. A missing `nvcc` or a failed build raises.
+`csrc/*.cu` are compiled by `nvcc` for Hopper (`sm_90a`), one `nvcc` per
+source, all started together, and linked into one shared library with a
+plain C interface, under `build/kernels/` at the root of the checkout,
+keyed by a hash of the sources and flags: an unchanged tree reuses its
+library, a changed one builds anew. The sources include no PyTorch header,
+so a build takes seconds (against minutes for
+`torch.utils.cpp_extension.load`). nvcc's messages, with ptxas's register
+and shared-memory report, go to `<library>.log`. Pointers and the stream
+cross as Python ints. A missing `nvcc` or a failed build raises.
 
 Nothing here runs at import: the CPU tests import every module of the port.
 """
@@ -23,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -51,6 +53,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"cpc_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(procs):
+    """Waits for every (cmd, Popen); returns their output, raises on the
+    first failure."""
+    log = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-1]}")
+    return log
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> Path:
     """Compiles csrc/*.cu unless the library for these sources exists.
     Returns its path."""
@@ -58,15 +77,33 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    try:
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            objs.append(obj)
+            procs.append(_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                 str(src)]))
+        log = _run(procs)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log += _run([_start([nvcc, "-shared", "-gencode",
+                             "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+                             *map(str, objs)])])
+        out.with_suffix(".log").write_text("\n".join(log))
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        for stale in BUILD_DIR.glob(f"{out.stem}.{os.getpid()}.tmp"):
+            stale.unlink()
     return out
 
 
@@ -76,11 +113,24 @@ def load_library() -> ctypes.CDLL:
     function's signature declared."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gru_scan_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                 i32, i32, ptr]
-    lib.gru_scan_fwd.restype = i32
-    lib.gru_scan_max_hidden.argtypes = []
-    lib.gru_scan_max_hidden.restype = i32
-    lib.gru_scan_error_string.argtypes = [i32]
-    lib.gru_scan_error_string.restype = ctypes.c_char_p
+    signatures = {
+        "gru_scan_fwd": [ptr] * 5 + [i32] * 5 + [ptr],
+        "gru_scan_bwd": [ptr] * 14 + [i32] * 6 + [ptr],
+        "heads_nll_fwd": [ptr] * 5 + [i32] * 8 + [ptr],
+        "heads_nll_bwd": [ptr] * 7 + [i32] * 9 + [ptr],
+        "gru_scan_max_hidden": [],
+    }
+    for name, args in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i32
+    lib.cpc_error_string.argtypes = [i32]
+    lib.cpc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raises if a C entry point returned a CUDA error."""
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.cpc_error_string(err).decode()}")

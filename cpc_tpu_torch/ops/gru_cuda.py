@@ -1,8 +1,10 @@
-"""GRU recurrence forward: a hand-written CUDA kernel and its plain version.
+"""GRU recurrence, forward and backward: hand-written CUDA kernels and their
+plain versions.
 
-Port of `cpc_tpu/ops/gru_pallas.py::gru_scan` (forward; `_fwd_kernel` is
-the TPU kernel it replaces). The kernel is `csrc/gru_scan.cu`; its source
-note gives the design and what bounds it on an H100.
+Port of `cpc_tpu/ops/gru_pallas.py::gru_scan` and its custom VJP
+(`_fwd_kernel` and `_bwd_kernel` are the TPU kernels replaced). The kernels
+are in `csrc/gru_scan.cu`; its source note gives the design and what bounds
+them on an H100.
 
     xproj (T, B, 3H), wh (H, 3H)   wire dtype: float32 or bfloat16
     bh (3H,)                       float32 or the wire dtype (used in fp32)
@@ -14,17 +16,23 @@ gates in the order r, z, n, computed in fp32; h carried in fp32 and rounded
 to wh's dtype only for the recurrent product, which accumulates in fp32;
 only the output is rounded to the wire dtype.
 
-Dispatch is by the device of `xproj`: a CPU tensor goes to
-`gru_scan_reference`, a CUDA tensor to the kernel, which runs or raises.
-The kernel is forward only: a gradient through it raises
-NotImplementedError (ROADMAP.md §B2).
+The backward has the Pallas backward's numerics (`_bwd_rule`): h_{t-1} is
+the forward's output rounded to the wire dtype (round(h0) at t = 0), the
+gates are recomputed from round(h_{t-1}) @ wh + bh in fp32, the recurrent
+gradient dh is carried in fp32, dwh and dbh are summed in fp32, and the
+results are cast to the dtypes of xproj, wh, bh and h0.
+
+Dispatch is by the device of `xproj`: a CPU tensor goes through
+`_GruScanPlain` (`gru_scan_reference` forward, `gru_scan_backward_reference`
+backward), a CUDA tensor through `_GruScanCuda`, whose forward and backward
+are the kernels, which run or raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cpc_tpu_torch.ops._build import load_library
+from cpc_tpu_torch.ops._build import check_launch, load_library
 
 _WIRE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -52,8 +60,45 @@ def gru_scan_reference(xproj: torch.Tensor, wh: torch.Tensor,
     return torch.stack(outs)
 
 
-def _check(xproj, wh, bh, h0) -> None:
-    """Raises on anything the kernel does not take."""
+def gru_scan_backward_reference(xproj, wh, bh, h0, hs, g):
+    """Plain PyTorch version of the backward kernel: an explicit reversed
+    loop over T with the Pallas backward's numerics (module docstring).
+    hs (T, B, H) is the forward's output, g (T, B, H) its cotangent.
+    Returns (dxproj, dwh, dbh, dh0)."""
+    T, B, H3 = xproj.shape
+    H = H3 // 3
+    w32 = wh.float()
+    b32 = bh.float()
+    hprev = torch.cat([h0.to(hs.dtype)[None], hs[:-1]]).float()
+    dh = torch.zeros(B, H, dtype=torch.float32, device=xproj.device)
+    dwh = torch.zeros(H, H3, dtype=torch.float32, device=xproj.device)
+    dbh = torch.zeros(H3, dtype=torch.float32, device=xproj.device)
+    dxproj = torch.empty_like(xproj)
+    for t in range(T - 1, -1, -1):
+        h_prev = hprev[t]
+        hp = h_prev.to(wh.dtype).float() @ w32 + b32
+        xr, xz, xn = xproj[t].float().split(H, dim=-1)
+        hr, hz, hn = hp.split(H, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        dh = dh + g[t].float()               # total dL/dh_t
+        dz = dh * (h_prev - n)
+        dn_pre = dh * (1.0 - z) * (1.0 - n * n)
+        dhn = dn_pre * r                      # into (h @ Whn + bhn)
+        dr_pre = dn_pre * hn * r * (1.0 - r)
+        dz_pre = dz * z * (1.0 - z)
+        dxproj[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
+        dhp = torch.cat([dr_pre, dz_pre, dhn], dim=-1)
+        dwh += h_prev.T @ dhp
+        dbh += dhp.sum(0)
+        dh = dh * z + dhp @ w32.T
+    return dxproj, dwh.to(wh.dtype), dbh.to(bh.dtype), dh.to(h0.dtype)
+
+
+def _check(xproj, wh, bh, h0, hs=None, g=None) -> None:
+    """Raises on anything the kernels do not take (hs and g: the backward's
+    extra inputs)."""
     if xproj.dim() != 3 or xproj.shape[2] % 3:
         raise ValueError(f"xproj must be (T, B, 3H), got {tuple(xproj.shape)}")
     T, B, H3 = xproj.shape
@@ -73,22 +118,38 @@ def _check(xproj, wh, bh, h0) -> None:
                            ("h0", h0, (B, H))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    for name, t in (("xproj", xproj), ("wh", wh), ("bh", bh), ("h0", h0)):
+    extra = [(n, t) for n, t in (("hs", hs), ("g", g)) if t is not None]
+    for name, t in extra:
+        if t.dtype != xproj.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != xproj dtype "
+                            f"{xproj.dtype}")
+        if tuple(t.shape) != (T, B, H):
+            raise ValueError(f"{name} must be {(T, B, H)}, got "
+                             f"{tuple(t.shape)}")
+    for name, t in (("xproj", xproj), ("wh", wh), ("bh", bh), ("h0", h0),
+                    *extra):
         if t.device != xproj.device:
             raise ValueError(f"{name} on {t.device}, xproj on {xproj.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(xproj, wh, bh, h0) -> torch.Tensor:
-    _check(xproj, wh, bh, h0)
+def _library(xproj, wh, bh, h0, hs=None, g=None):
+    """The kernels' library, after every check of the inputs."""
+    _check(xproj, wh, bh, h0, hs, g)
     lib = load_library()
-    T, B, H3 = xproj.shape
-    H = H3 // 3
+    H = xproj.shape[2] // 3
     if H > lib.gru_scan_max_hidden():
-        raise ValueError(f"gru_scan kernel takes H <= "
+        raise ValueError(f"gru_scan kernels take H <= "
                          f"{lib.gru_scan_max_hidden()} (one thread per "
                          f"hidden unit), got H={H}")
+    return lib
+
+
+def _launch(xproj, wh, bh, h0) -> torch.Tensor:
+    lib = _library(xproj, wh, bh, h0)
+    T, B, H3 = xproj.shape
+    H = H3 // 3
     # freeing this copy after the launch is safe: the caching allocator
     # reuses it only for work queued later on the same stream
     b32 = bh.float()
@@ -98,23 +159,86 @@ def _launch(xproj, wh, bh, h0) -> torch.Tensor:
         xproj.data_ptr(), wh.data_ptr(), b32.data_ptr(), h0.data_ptr(),
         out.data_ptr(), T, B, H, int(xproj.dtype == torch.bfloat16),
         xproj.device.index, stream.cuda_stream)
-    if err:
-        raise RuntimeError(f"gru_scan kernel launch failed: "
-                           f"{lib.gru_scan_error_string(err).decode()}")
+    check_launch(lib, err, "gru_scan")
     gru_scan.launches += 1
     return out
+
+
+_ROWS_PER_SPLIT = 512  # T*B rows per partial sum of dwh and dbh
+
+
+def _launch_bwd(xproj, wh, bh, h0, hs, g):
+    lib = _library(xproj, wh, bh, h0, hs, g)
+    T, B, H3 = xproj.shape
+    H = H3 // 3
+    splits = min(max(1, -(-T * B // _ROWS_PER_SPLIT)), 64)
+    dev, f32 = xproj.device, torch.float32
+    # these temporaries are freed after the launch, which is safe: the
+    # caching allocator reuses them only for work queued later on the stream
+    wht = wh.t().contiguous()  # wh by rows becomes coalesced columns
+    b32 = bh.float()
+    dxproj = torch.empty_like(xproj)
+    dhp = torch.empty((T, B, H3), dtype=f32, device=dev)
+    dh0 = torch.empty((B, H), dtype=f32, device=dev)
+    pdwh = torch.empty((splits, H, H3), dtype=f32, device=dev)
+    pdbh = torch.empty((splits, H3), dtype=f32, device=dev)
+    dwh = torch.empty((H, H3), dtype=wh.dtype, device=dev)
+    dbh = torch.empty((H3,), dtype=f32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    err = lib.gru_scan_bwd(
+        xproj.data_ptr(), wh.data_ptr(), wht.data_ptr(), b32.data_ptr(),
+        h0.data_ptr(), hs.data_ptr(), g.data_ptr(), dxproj.data_ptr(),
+        dhp.data_ptr(), dh0.data_ptr(), pdwh.data_ptr(), pdbh.data_ptr(),
+        dwh.data_ptr(), dbh.data_ptr(), T, B, H, splits,
+        int(xproj.dtype == torch.bfloat16), dev.index, stream.cuda_stream)
+    check_launch(lib, err, "gru_scan_backward")
+    gru_scan_backward.launches += 1
+    return dxproj, dwh, dbh.to(bh.dtype), dh0
+
+
+def gru_scan_backward(xproj, wh, bh, h0, hs, g):
+    """The backward: (dxproj, dwh, dbh, dh0) from the forward's inputs, its
+    output hs and the cotangent g. CPU tensors run
+    `gru_scan_backward_reference`; CUDA tensors run the kernels, and
+    `gru_scan_backward.launches` counts the launches."""
+    if xproj.device.type == "cpu":
+        return gru_scan_backward_reference(xproj, wh, bh, h0, hs, g)
+    if xproj.device.type != "cuda":
+        raise ValueError(f"gru_scan runs on cpu or cuda, not {xproj.device}")
+    return _launch_bwd(xproj, wh, bh, h0, hs, g)
+
+
+gru_scan_backward.launches = 0
+
+
+class _GruScanPlain(torch.autograd.Function):
+    """The plain forward and backward, on any device: the CPU path, and the
+    reference the kernels are held against on the card."""
+
+    @staticmethod
+    def forward(ctx, xproj, wh, bh, h0):
+        hs = gru_scan_reference(xproj, wh, bh, h0)
+        ctx.save_for_backward(xproj, wh, bh, h0, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gru_scan_backward_reference(*ctx.saved_tensors,
+                                           grad.contiguous())
 
 
 class _GruScanCuda(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xproj, wh, bh, h0):
-        return _launch(xproj, wh, bh, h0)
+        hs = _launch(xproj, wh, bh, h0)
+        ctx.save_for_backward(xproj, wh, bh, h0, hs)
+        return hs
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the CUDA gru_scan kernel is forward only; its backward (port of "
-            "cpc_tpu/ops/gru_pallas.py::_bwd_kernel) is ROADMAP.md §B2")
+        xproj, wh, bh, h0, hs = ctx.saved_tensors
+        return _launch_bwd(xproj, wh, bh, h0, hs,
+                           grad.to(hs.dtype).contiguous())
 
 
 def gru_scan(xproj: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor,
@@ -122,9 +246,11 @@ def gru_scan(xproj: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor,
     """xproj (T, B, 3H), wh (H, 3H), bh (3H,), h0 (B, H) -> hs (T, B, H).
 
     CPU tensors run `gru_scan_reference`; CUDA tensors run the kernel, and
-    `gru_scan.launches` counts its launches."""
+    `gru_scan.launches` counts its launches. Differentiable: the backward
+    is `gru_scan_backward_reference` on the CPU and the backward kernels on
+    CUDA."""
     if xproj.device.type == "cpu":
-        return gru_scan_reference(xproj, wh, bh, h0)
+        return _GruScanPlain.apply(xproj, wh, bh, h0)
     if xproj.device.type != "cuda":
         raise ValueError(f"gru_scan runs on cpu or cuda, not {xproj.device}")
     return _GruScanCuda.apply(xproj, wh, bh, h0)

@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: `gru_scan` against
-`gru_scan_reference` on the same CUDA tensors, and the slice on the card
-against the slice on the CPU.
+"""The port's CUDA kernels on the card, each against its plain version on
+the same CUDA tensors: the GRU recurrence forward and backward, and the
+fused heads + InfoNCE forward and backward; then the extraction slice and a
+training step on the card against the same on the CPU.
 
 Every test here is marked `cuda` and skips without a GPU. The file imports
 no jax, so it also runs where jax is not installed, without the suite's
@@ -13,9 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from cpc_tpu_torch import CPCModel, extract_features
-from cpc_tpu_torch.config import ArConfig, EncoderConfig, LossConfig, ModelConfig
-from cpc_tpu_torch.ops.gru_cuda import gru_scan, gru_scan_reference
+from cpc_tpu_torch import CPCModel, extract_features, presets
+from cpc_tpu_torch.config import (ArConfig, EncoderConfig, LossConfig,
+                                  ModelConfig, apply_overrides)
+from cpc_tpu_torch.ops.gru_cuda import (gru_scan, gru_scan_backward,
+                                        gru_scan_backward_reference,
+                                        gru_scan_reference)
+from cpc_tpu_torch.ops.infonce_fused import (heads_nll_backward,
+                                             heads_nll_backward_reference,
+                                             heads_nll_forward,
+                                             heads_nll_reference)
+from cpc_tpu_torch.train.train_step import init_state, make_step_fns
 
 pytestmark = pytest.mark.cuda
 
@@ -54,11 +63,113 @@ def test_kernel_matches_plain(T, B, H, dtype, tol):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
-def test_kernel_is_forward_only():
-    args = [a.clone().requires_grad_(a.dtype == torch.float32)
-            for a in _scan_inputs(4, 2, 8, torch.float32)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gru_scan(*args).sum().backward()
+def _rel(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+
+
+# relative to max(1, max |plain|): fp32 by summation order; bf16 outputs by
+# about one rounding (2**-8) where an fp32 sum lands near a rounding edge
+REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(128, 64, 256), (7, 3, 40), (3, 1, 1024),
+                                   (600, 5, 32)])
+def test_backward_kernel_matches_plain(T, B, H, dtype):
+    xp, wh, bh, h0 = _scan_inputs(T, B, H, dtype)
+    g = torch.randn((T, B, H), device="cuda").to(dtype)
+    hs = gru_scan_reference(xp, wh, bh, h0)
+    before = gru_scan_backward.launches
+    got = gru_scan_backward(xp, wh, bh, h0, hs, g)
+    torch.cuda.synchronize()
+    assert gru_scan_backward.launches == before + 1
+    want = gru_scan_backward_reference(xp, wh, bh, h0, hs, g)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        tol = REL[torch.float32 if b.dtype == torch.float32 else dtype]
+        assert _rel(a, b) <= tol
+
+
+def test_gradient_through_the_kernels_matches_the_plain_function():
+    leaves = [a.clone().requires_grad_()
+              for a in _scan_inputs(9, 3, 16, torch.float32)]
+    g = torch.randn((9, 3, 16), device="cuda")
+    torch.autograd.backward(gru_scan(*leaves), g)
+    want = gru_scan_backward_reference(
+        *[a.detach() for a in leaves],
+        gru_scan_reference(*[a.detach() for a in leaves]), g)
+    for a, b in zip(leaves, want):
+        torch.testing.assert_close(a.grad, b, rtol=0, atol=1e-5)
+
+
+def _heads_inputs(T, B, C, K, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(rng.standard_normal((T, B, K * D)) / np.sqrt(D))
+    z = torch.from_numpy(rng.standard_normal((T, C, D)))
+    g = torch.from_numpy(rng.standard_normal((T, K * B)))
+    return (p.to("cuda", dtype), z.to("cuda", dtype),
+            g.to("cuda", torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,C,K,D,shift", [
+    (128, 64, 64, 12, 512, 0), (20, 3, 6, 3, 40, 3), (9, 70, 200, 2, 33, 65),
+    (5, 1, 1, 4, 8, 0)])
+def test_heads_kernels_match_plain(T, B, C, K, D, shift, dtype):
+    p, z, g = _heads_inputs(T, B, C, K, D, dtype)
+    before = (heads_nll_forward.launches, heads_nll_backward.launches)
+    nll, cor, lse = heads_nll_forward(p, z, shift, K)
+    r_nll, r_cor, r_lse = heads_nll_reference(p, z, shift, K)
+    torch.cuda.synchronize()
+    assert (nll - r_nll).abs().max().item() <= 1e-4
+    assert (lse - r_lse).abs().max().item() <= 1e-4
+    assert (cor != r_cor).float().mean().item() <= 1e-4  # near-ties only
+    dz, dp = heads_nll_backward(g, r_lse, p, z, shift, K)
+    r_dz, r_dp = heads_nll_backward_reference(g, r_lse, p, z, shift, K)
+    torch.cuda.synchronize()
+    assert (heads_nll_forward.launches, heads_nll_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert dz.dtype == torch.float32 and dp.dtype == dtype
+    assert dp.shape == (K, T, B, D) and dz.shape == (T, C, D)
+    assert _rel(dz, r_dz) <= REL[torch.float32]
+    assert _rel(dp, r_dp) <= REL[dtype]
+
+
+def test_heads_kernels_reject_what_they_do_not_take():
+    p, z, _ = _heads_inputs(6, 2, 3, 2, 8, torch.float32)
+    with pytest.raises(TypeError):
+        heads_nll_forward(p.half(), z.half(), 0, 2)
+    with pytest.raises(ValueError):
+        heads_nll_forward(p[:, :, :-1], z, 0, 2)
+    with pytest.raises(ValueError):
+        heads_nll_forward(p.transpose(0, 1).contiguous().transpose(0, 1), z,
+                          0, 2)
+
+
+def test_train_step_on_card_matches_cpu():
+    cfg = apply_overrides(presets.baseline(), [
+        "model.encoder.channels=16,16,16,16,16", "model.encoder.d_enc=16",
+        "model.ar.d_ar=16", "model.ar.use_pallas=true",
+        "model.loss.prediction_steps=3", "model.loss.use_pallas=true",
+        "model.loss.fuse_heads=true", "data.batch_size=4",
+        "data.snippet_samples=2560"])
+    batch = torch.from_numpy(np.clip(np.random.default_rng(0).standard_normal(
+        (4, 2560)) * 5000, -32768, 32767).astype(np.int16))
+    metrics, models = [], []
+    for device in ("cpu", "cuda"):
+        model = init_state(cfg, device)
+        steps = make_step_fns(cfg, model)
+        metrics.append([steps.train_step(batch.to(device)) for _ in range(2)])
+        models.append(model)
+    for m_cpu, m_gpu in zip(*metrics):
+        for k in ("loss", "grad_norm", "acc"):
+            torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-4,
+                                       atol=1e-5)
+    for (k, a), b in zip(models[0].state_dict().items(),
+                         models[1].state_dict().values()):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5, msg=k)
 
 
 def test_kernel_rejects_too_wide_h():

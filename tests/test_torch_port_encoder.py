@@ -95,3 +95,26 @@ def test_unported_options_raise(kw):
 def test_unknown_norm_raises():
     with pytest.raises(ValueError, match="norm"):
         ConvEncoder(EncoderConfig(**NARROW, norm="bogus"))
+
+
+@pytest.mark.parametrize("n", [2000, 2560, 3205])
+def test_bf16_encoder_matches_jax_bf16_on_cpu(n):
+    # bf16 compute: both round each conv's output to bf16 once. oneDNN's
+    # bf16 conv1d on the CPU (torch 2.13) was off by up to 5 at outputs of
+    # magnitude 5 for lengths divisible by the stride; the port runs CPU
+    # bf16 convs in fp32 and rounds once. Bound: a few bf16 ulps (2**-8
+    # relative) of the largest output, from rounding flips carried on.
+    jenc, params, _ = _pair(seed=n)
+    tenc = ConvEncoder(EncoderConfig(**NARROW), dtype=torch.bfloat16)
+    tenc.load_state_dict(encoder_state_dict(params["params"],
+                                            EncoderConfig(**NARROW)))
+    jbf = JaxConvEncoder(JaxEncoderConfig(**NARROW), dtype=jnp.bfloat16)
+    x = np.random.default_rng(n).standard_normal((2, n)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jbf.apply(params, jnp.asarray(x)).astype(
+            jnp.float32))
+    with torch.no_grad():
+        got = tenc(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 3e-2 * max(1.0, np.abs(want).max())

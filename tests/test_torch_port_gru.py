@@ -71,8 +71,9 @@ def test_cpu_dispatch_is_reference_and_counts_no_launch():
 
 
 def test_reference_gradients_match_pallas_backward():
-    # the plain version is differentiable by autograd; its gradients agree
-    # with the JAX package's Pallas backward kernel (interpret mode)
+    # gru_scan on CPU tensors is differentiable (through _GruScanPlain);
+    # its gradients agree with the JAX package's Pallas backward kernel
+    # (interpret mode)
     T, B, H = 6, 3, 8
     args = _scan_inputs(T, B, H, seed=2)
 

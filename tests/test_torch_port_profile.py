@@ -1,0 +1,34 @@
+"""`cpc_tpu_torch.train.profile_step`: its kernel-name stages, and that it
+asks for a GPU (the profile itself runs only on the card)."""
+
+import pytest
+import torch
+
+from cpc_tpu_torch.train.profile_step import OTHER, main, stage_of
+
+
+@pytest.mark.parametrize("name,stage", [
+    ("void gru_scan_bwd_kernel<__nv_bfloat16>(...)", "GRU backward"),
+    ("void gru_scan_fwd_kernel<float>(...)", "GRU forward"),
+    ("void gru_bwd_reduce_kernel<__nv_bfloat16>(...)", "GRU dwh/dbh"),
+    ("gru_bwd_finish_kernel(float const*, ...)", "GRU dwh/dbh"),
+    ("void heads_nll_fwd_kernel<float>(...)", "fused heads + InfoNCE forward"),
+    ("void heads_dz_kernel<__nv_bfloat16>(...)",
+     "fused heads + InfoNCE backward"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "conv encoder"),
+    ("sm90_xmma_wgrad_implicit_gemm_indexed_bf16bf16", "conv encoder"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<...>",
+     "conv encoder"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+     "matmuls"),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>", OTHER),
+])
+def test_stage_of_kernel_names(name, stage):
+    assert stage_of(name).startswith(stage)
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the CPU exit")
+def test_main_needs_a_gpu():
+    with pytest.raises(SystemExit, match="needs a CUDA GPU"):
+        main([])

@@ -216,10 +216,16 @@ def test_scalogram_raises():
 SLICE_MODULES = [
     "cpc_tpu_torch", "cpc_tpu_torch.config", "cpc_tpu_torch.interop",
     "cpc_tpu_torch.ops.dsp", "cpc_tpu_torch.ops.gru_cuda",
+    "cpc_tpu_torch.ops.infonce", "cpc_tpu_torch.ops.infonce_fused",
     "cpc_tpu_torch.ops._build", "cpc_tpu_torch.models.encoder",
     "cpc_tpu_torch.models.gru", "cpc_tpu_torch.models.cpc",
-    "cpc_tpu_torch.data.wavio", "cpc_tpu_torch.eval.features",
-    "cpc_tpu_torch.eval.cli", "cpc_tpu_torch.eval.__main__"]
+    "cpc_tpu_torch.data.wavio", "cpc_tpu_torch.data.dataset",
+    "cpc_tpu_torch.data.synthetic", "cpc_tpu_torch.data.loader",
+    "cpc_tpu_torch.eval.features", "cpc_tpu_torch.eval.cli",
+    "cpc_tpu_torch.eval.__main__", "cpc_tpu_torch.train.train_step",
+    "cpc_tpu_torch.train.metrics", "cpc_tpu_torch.train.checkpoint",
+    "cpc_tpu_torch.train.trainer", "cpc_tpu_torch.train.cli",
+    "cpc_tpu_torch.train.__main__"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cpc_tpu")
 
 
