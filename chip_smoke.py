@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero:
    same CUDA tensors, at the slice's shape (T, B, H) = (128, 64, 256) in
    bf16 and fp32 and at a ragged (7, 3, 40); then both times at the
    slice's shape in bf16 (median of CUDA-event-timed runs), with
-   torch.nn.GRU (cuDNN; it also does the input projection) for context;
+   torch.nn.GRU (cuDNN; it also does the input projection) as the library
+   yardstick;
 4. the extraction slice: `extract_features` of a `tpu_fast` CPCModel (full
    width, random weights from a seed) over 4 batches of 64 windows of
    seeded synthetic audio; checks shapes, finiteness, the kernel's launch
@@ -23,7 +24,8 @@ Phases, in order; any failure exits non-zero:
    (7, 3, 40), the fused heads + InfoNCE forward and backward at the
    slice's (T, B, C, K, D) = (128, 64, 64, 12, 512) and at (20, 3, 6, 3, 40)
    with shift 3, each in bf16 and fp32; then kernel and plain times at the
-   slice's shape in bf16;
+   slice's shape in bf16, with torch.nn.GRU's backward (cuDNN) beside the
+   GRU backward as a yardstick only;
 6. the training slice through its entry point:
    `cpc_tpu_torch.train.cli.main` trains `tpu_fast` at full width on the
    synthetic corpus for 10 steps; checks that metrics.jsonl is finite, that
@@ -32,10 +34,33 @@ Phases, in order; any failure exits non-zero:
 7. one full-width step on a seeded batch through the kernels against the
    same step composed here from the model's modules and the plain
    versions: loss, per-k accuracy, grad_norm and the grads of wh and of the
-   heads' weight; then the steady training rate.
+   heads' weight; then the steady training rate;
+8. the kernels of the other two loss paths against their plain versions on
+   the same CUDA tensors: the same-step InfoNCE on materialized predictions
+   and the all-steps InfoNCE, forward and backward, at tpu_fast's
+   (B, T, C, K, D) = (64, 128, 64, 12, 512) (all-steps: 89 088 rows against
+   8 192 candidates) and at (3, 20, 6, 3, 40) with shift 3, each in bf16
+   and fp32: nll, lse, correct, dpreds, dz, and the backward twice for
+   bit-identical results; then kernel and plain times at tpu_fast's shape
+   in bf16;
+9. those two paths through the entry point: `cpc_tpu_torch.train.cli.main`
+   trains `tpu_fast` at full width for 10 steps with
+   `--set model.loss.negatives=all_steps`, then with
+   `--set model.loss.fuse_heads=false`; metrics finite, the path's kernels
+   launched once per step, the other loss kernels not at all, a checkpoint
+   written;
+10. one full-width step of each of the two paths through the kernels
+   against the same step composed from the plain versions: loss, per-k
+   accuracy, grad_norm, the grads of the heads' weight and of the last
+   encoder layer; then the steady step time and audio-s/s of each path.
 
-It prints a JSON line of the kernels it checked and, last, one JSON object
-naming the device.
+It prints a JSON line of the kernels it checked, each with its launches on
+its main path, its error against its plain version, its time, its plain
+version's time, the least time the card could take (`bound_ms`: the larger
+of the bytes it must move over 3.35 TB/s and its operations over the peak
+rate of its input type, from this run's tensors) and, where one PyTorch
+call computes the same function, that call's time (`library_ms`); and, last,
+one JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -52,6 +77,7 @@ import numpy as np
 import torch
 
 from cpc_tpu_torch import CPCModel, extract_features, presets
+from cpc_tpu_torch.config import apply_overrides
 from cpc_tpu_torch.data.loader import device_prepare
 from cpc_tpu_torch.ops import _build
 from cpc_tpu_torch.ops.dsp import prepare_waveform
@@ -59,6 +85,16 @@ from cpc_tpu_torch.ops.gru_cuda import (_GruScanPlain, gru_scan,
                                         gru_scan_backward,
                                         gru_scan_backward_reference,
                                         gru_scan_reference)
+from cpc_tpu_torch.ops.infonce_allsteps_cuda import (
+    _AllStepsNllPlain, allsteps_nll_backward,
+    allsteps_nll_backward_reference, allsteps_nll_forward,
+    allsteps_nll_reference, reduce_allsteps_nll)
+from cpc_tpu_torch.ops.infonce_cuda import (_SameStepNllPlain,
+                                            reduce_same_step_nll,
+                                            same_step_nll_backward,
+                                            same_step_nll_backward_reference,
+                                            same_step_nll_forward,
+                                            same_step_nll_reference)
 from cpc_tpu_torch.ops.infonce_fused import (_HeadsNllPlain,
                                              heads_nll_backward,
                                              heads_nll_backward_reference,
@@ -112,6 +148,24 @@ def check(ok: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# device memory, and dense operations by input type (bf16 on the tensor
+# cores, fp32 outside them).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound(tensors, flops: float, dtype=torch.bfloat16) -> dict:
+    """The least time the card could take: `tensors` (every input and
+    output, once each) over the memory rate, or `flops` over the peak rate
+    of `dtype`, whichever is larger."""
+    by_bytes = sum(t.numel() * t.element_size()
+                   for t in tensors) / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 # ---------------------------------------------------------------- phase 5
 # Tolerances, relative to max(1, max |plain|) of each output: fp32 differs
 # by summation order only; bf16 outputs by at most about one rounding of
@@ -148,7 +202,8 @@ def heads_inputs(T, B, C, K, D, dtype, seed):
 
 def phase5_kernels(card: str) -> dict:
     """Backward GRU and fused heads kernels against their plain versions;
-    returns {name: (max abs err, ms, plain ms)}."""
+    returns {name: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by}}."""
     errs = {"gru_scan_backward": 0.0, "heads_nll_forward": 0.0,
             "heads_nll_backward": 0.0}
     with torch.inference_mode():
@@ -215,41 +270,95 @@ def phase5_kernels(card: str) -> dict:
         g = torch.randn((T, B, H), device="cuda").to(torch.bfloat16)
         hs = gru_scan_reference(xp, wh, bh, h0)
         args = (xp, wh, bh, h0, hs, g)
-        times = {"gru_scan_backward": (
-            cuda_ms(lambda: gru_scan_backward(*args)),
-            cuda_ms(lambda: gru_scan_backward_reference(*args), reps=5))}
+        outs = gru_scan_backward(*args)
+        out = {"gru_scan_backward": {
+            "ms": cuda_ms(lambda: gru_scan_backward(*args)),
+            "plain_ms": cuda_ms(lambda: gru_scan_backward_reference(*args),
+                                reps=5),
+            # gate recompute, dh = dhp wh^T and dwh = h^T dhp
+            **bound([*args, *outs], 3 * 2 * T * B * H * 3 * H)}}
         T, B, C, K, D, shift = HEADS_SLICE
         p, z, g = heads_inputs(T, B, C, K, D, torch.bfloat16, seed=30)
-        lse = heads_nll_reference(p, z, shift, K)[2]
-        times["heads_nll_forward"] = (
-            cuda_ms(lambda: heads_nll_forward(p, z, shift, K)),
-            cuda_ms(lambda: heads_nll_reference(p, z, shift, K)))
-        times["heads_nll_backward"] = (
-            cuda_ms(lambda: heads_nll_backward(g, lse, p, z, shift, K)),
-            cuda_ms(lambda: heads_nll_backward_reference(g, lse, p, z, shift,
-                                                         K)))
-    for name, (ms, plain) in times.items():
-        print(f"time {name} at the slice, bf16, on {card}: kernel {ms:.4f} "
-              f"ms, plain {plain:.4f} ms", flush=True)
-    return {k: (errs[k], *times[k]) for k in errs}
+        nll, cor, lse = heads_nll_reference(p, z, shift, K)
+        scores = 2 * T * K * B * C * D
+        out["heads_nll_forward"] = {
+            "ms": cuda_ms(lambda: heads_nll_forward(p, z, shift, K)),
+            "plain_ms": cuda_ms(lambda: heads_nll_reference(p, z, shift, K)),
+            "library_ms": None, **bound([p, z, nll, cor, lse], scores)}
+        outs = heads_nll_backward(g, lse, p, z, shift, K)
+        out["heads_nll_backward"] = {
+            "ms": cuda_ms(lambda: heads_nll_backward(g, lse, p, z, shift, K)),
+            "plain_ms": cuda_ms(lambda: heads_nll_backward_reference(
+                g, lse, p, z, shift, K)),
+            # the scores again, dz and dp
+            "library_ms": None, **bound([g, lse, p, z, *outs], 3 * scores)}
+    out["gru_scan_backward"]["library_ms"] = cudnn_gru_backward_ms()
+    for name, m in out.items():
+        m["max_abs_err"] = errs[name]
+        print(f"time {name} at the slice, bf16, on {card}: kernel "
+              f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+              f"{m['bound_ms']:.4f} ms by {m['bound_by']}, library call "
+              f"{m['library_ms'] and round(m['library_ms'], 4)} ms",
+              flush=True)
+    return out
 
 
-# ---------------------------------------------------------------- phase 6
+def cudnn_gru(T, B, H):
+    """torch.nn.GRU in bf16 on the card with its input x (T, B, H) and h0:
+    cuDNN's GRU, timed as the library yardstick and used by nothing else.
+    cuDNN does not flatten bf16 RNN weights, so torch warns; the per-call
+    copy it makes is 0.8 MB."""
+    gru = torch.nn.GRU(H, H).to("cuda", torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((T, B, H), device="cuda", generator=gen).to(torch.bfloat16)
+    h0 = torch.zeros((1, B, H), device="cuda", dtype=torch.bfloat16)
+    return gru, x, h0
+
+
+def cudnn_gru_backward_ms() -> float:
+    """cuDNN's GRU backward at the slice's shape (it also returns the
+    gradients of the input projection)."""
+    gru, x, h0 = cudnn_gru(*SLICE_SHAPE)
+    x.requires_grad_()
+    out, _ = gru(x, h0)
+    g = torch.randn_like(out)
+    wanted = [x, *gru.parameters()]
+    return cuda_ms(lambda: torch.autograd.grad(out, wanted, g,
+                                               retain_graph=True))
+
+
+# ---------------------------------------------------------- phases 6 and 9
 TRAIN_STEPS = 10
 COUNTED = {"gru_scan": gru_scan, "gru_scan_backward": gru_scan_backward,
            "heads_nll_forward": heads_nll_forward,
-           "heads_nll_backward": heads_nll_backward}
+           "heads_nll_backward": heads_nll_backward,
+           "same_step_nll_forward": same_step_nll_forward,
+           "same_step_nll_backward": same_step_nll_backward,
+           "allsteps_nll_forward": allsteps_nll_forward,
+           "allsteps_nll_backward": allsteps_nll_backward}
+GRU_KERNELS = ("gru_scan", "gru_scan_backward")
+LOSS_PATHS = {  # the CLI's --set, and the loss kernels the path launches
+    "fused": ([], ("heads_nll_forward", "heads_nll_backward")),
+    "all_steps": (["--set", "model.loss.negatives=all_steps"],
+                  ("allsteps_nll_forward", "allsteps_nll_backward")),
+    "fuse_heads=false": (["--set", "model.loss.fuse_heads=false"],
+                         ("same_step_nll_forward",
+                          "same_step_nll_backward"))}
 
 
-def phase6_train() -> dict:
-    """Trains tpu_fast through the CLI's main; returns the launch counts."""
+def train_through_cli(path: str) -> dict:
+    """Trains tpu_fast through the CLI's main on the loss path `path`, with
+    every count set to 0 just before; returns every kernel's launch count,
+    checked: the GRU's and the path's kernels once per step, the others
+    never."""
+    extra, launched = LOSS_PATHS[path]
     for fn in COUNTED.values():
         fn.launches = 0
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
         rc = train_cli.main(["--config", "tpu_fast", "--data", "synthetic",
                              "--steps", str(TRAIN_STEPS), "--workdir",
-                             workdir])
+                             workdir, *extra])
         wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in COUNTED.items()}
         check(rc == 0, f"train cli returned {rc}")
@@ -264,52 +373,72 @@ def phase6_train() -> dict:
         check(recs[-1]["step"] == TRAIN_STEPS, f"last step {recs[-1]}")
         ckpts = os.listdir(os.path.join(workdir, "checkpoints"))
         check(f"step_{TRAIN_STEPS}.pt" in ckpts, f"checkpoints: {ckpts}")
-    print(f"train: {TRAIN_STEPS} steps of tpu_fast through "
+    print(f"train ({path}): {TRAIN_STEPS} steps of tpu_fast through "
           f"cpc_tpu_torch.train.cli.main in {wall:.2f} s (corpus, build "
           f"and warm-up included); last log {json.dumps(recs[-1])}; "
           f"launches {counts}", flush=True)
     for name, n in counts.items():
-        check(n == TRAIN_STEPS, f"{name} launched {n} times, expected "
-              f"{TRAIN_STEPS} (one per step)")
+        want = TRAIN_STEPS if name in GRU_KERNELS + launched else 0
+        check(n == want, f"{path}: {name} launched {n} times, expected "
+              f"{want}")
     return counts
 
 
-# ---------------------------------------------------------------- phase 7
+# --------------------------------------------------------- phases 7 and 10
 def plain_loss(model, batch, cfg):
-    """The fused tpu_fast loss composed from the model's modules and the
-    plain GRU and heads Functions (the package has no switch for this)."""
-    K = cfg.model.loss.prediction_steps
-    kd = torch.bfloat16 if cfg.model.loss.pallas_bf16 else torch.float32
+    """The loss of `cfg` composed from the model's modules and the plain
+    GRU and loss Functions (the package has no switch for this)."""
+    loss = cfg.model.loss
+    K = loss.prediction_steps
+    kd = torch.bfloat16 if loss.pallas_bf16 else torch.float32
     z = model.encoder(device_prepare(batch, cfg.data.normalize))
     h = z
     for layer in model.gar.layers():
         hs = _GruScanPlain.apply(*layer.scan_inputs(h, None))  # (T, B, H)
         h = hs.transpose(0, 1)
-    W = model.prediction_heads.weight.t().to(kd)
-    nll, cor = _HeadsNllPlain.apply(hs.to(kd).contiguous(),
-                                    z.to(kd).transpose(0, 1).contiguous(),
-                                    W, 0, K)
-    return reduce_heads_nll(nll, cor, K, z.shape[0])
+    B, T, _ = z.shape
+    if loss.fuse_heads and loss.negatives == "same_step":
+        W = model.prediction_heads.weight.t().to(kd)
+        nll, cor = _HeadsNllPlain.apply(hs.to(kd).contiguous(),
+                                        z.to(kd).transpose(0, 1).contiguous(),
+                                        W, 0, K)
+        return reduce_heads_nll(nll, cor, K, B)
+    preds_v = model.predict(h).reshape(B, T, K, -1)[:, :T - K].to(kd)
+    if loss.negatives == "all_steps":
+        nll, cor = _AllStepsNllPlain.apply(preds_v, z.to(kd).contiguous(), 0)
+        return reduce_allsteps_nll(nll, cor, T - K, K, B)
+    nll, cor = _SameStepNllPlain.apply(preds_v, z.to(kd), 0)
+    return reduce_same_step_nll(nll, cor, K, B)
 
 
 # The two steps share the encoder's cuDNN calls exactly; they differ only in
-# the GRU's and the heads' fp32 summation order. Loss and grad_norm
+# the GRU's and the loss's fp32 summation order. Loss and grad_norm
 # relative, acc absolute (4e-4 is 3 of the 7 424 rows of a k, for argmax
-# near-ties), grads relative to their largest entry. Measured on an H100
-# 80GB HBM3 at 700 W: loss 2.3e-7, acc 0, grad_norm 2.4e-6, grads 3.8e-6
-# (wh) and 1.9e-6 (W); each bound is 4-26x that.
-STEP_TOL = {"loss": 1e-6, "acc": 4e-4, "grad_norm": 1e-5, "grad": 1e-4}
+# near-ties). Grads twice: relative to max(1, max |grad|), which for these
+# gradients (all below 1) is the absolute error, and relative to their
+# largest entry, where one bf16 rounding (2**-8) of an activation gradient
+# shows. Measured on an H100 80GB HBM3 at 700 W on the fused path: loss
+# 2.3e-7, acc 0, grad_norm 2.4e-6, grads 3.8e-6 absolute (wh) and 1.9e-6
+# (W), 2.3e-3 and 4.4e-3 of their largest entry.
+STEP_TOL = {"loss": 1e-6, "acc": 4e-4, "grad_norm": 1e-5, "grad": 1e-4,
+            "grad_of_max": 1e-2}
 
 
-def phase7_step(card: str) -> None:
+def step_vs_plain(card: str, path: str, watched_names) -> None:
+    """One full-width tpu_fast step of loss path `path` through the kernels
+    against the same step through the plain versions, then its steady
+    time."""
     cfg = presets.tpu_fast()
+    overrides = [a for a in LOSS_PATHS[path][0] if a != "--set"]
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
     model = init_state(cfg, "cuda")
     steps = make_step_fns(cfg, model)
     B, S = cfg.data.batch_size, cfg.data.snippet_samples
     batch = torch.from_numpy(np.clip(np.random.default_rng(3).standard_normal(
         (B, S)) * 3000, -32768, 32767).astype(np.int16)).cuda()
-    watched = {"wh": model.gar.layer0.wh,
-               "W": model.prediction_heads.weight}
+    params = dict(model.named_parameters())
+    watched = {k: params[k] for k in watched_names}
     results = []
     for loss_fn in (steps.loss_fn, lambda m, b: plain_loss(m, b, cfg)):
         model.zero_grad(set_to_none=True)
@@ -324,14 +453,18 @@ def phase7_step(card: str) -> None:
             "grad_norm": abs(gn - p_gn) / p_gn}
     for k in watched:
         errs[f"grad {k}"] = rel_err(grads[k], p_grads[k])
-    print(f"step vs plain step (tpu_fast, bf16, batch {B}): loss {loss:.6f} "
-          f"vs {p_loss:.6f}, grad_norm {gn:.6f} vs {p_gn:.6f}, acc "
-          f"{acc.tolist()}; errors {errs} (tolerances {STEP_TOL}: relative "
-          f"for loss and grad_norm, absolute for acc, relative to "
-          f"max |grad| for grads)", flush=True)
+        errs[f"grad_of_max {k}"] = (
+            (grads[k] - p_grads[k]).abs().max()
+            / p_grads[k].abs().max()).item()
+    print(f"step vs plain step (tpu_fast, {path}, bf16, batch {B}): loss "
+          f"{loss:.6f} vs {p_loss:.6f}, grad_norm {gn:.6f} vs {p_gn:.6f}, "
+          f"acc {acc.tolist()}; errors {errs} (tolerances {STEP_TOL}: "
+          f"relative for loss and grad_norm, absolute for acc, relative to "
+          f"max(1, max |grad|) for grad and to max |grad| for grad_of_max)",
+          flush=True)
     for k, e in errs.items():
         check(math.isfinite(e) and e <= STEP_TOL[k.split()[0]],
-              f"step vs plain: {k} error {e}")
+              f"step vs plain ({path}): {k} error {e}")
 
     def timed(fn, n):
         out = []
@@ -351,11 +484,133 @@ def phase7_step(card: str) -> None:
     step_s = timed(lambda: steps.train_step(batch), 10)
     plain_s = timed(plain_step, 3)
     audio = B * S / cfg.data.sample_rate
-    print(f"train step (tpu_fast, batch {B} x {S} samples = {audio:.2f} "
-          f"audio-s, device-resident batch) on {card}: {step_s * 1e3:.2f} ms "
-          f"median of 10 = {audio / step_s:.1f} audio-s/s; the plain step "
-          f"(forward and backward only, context) {plain_s * 1e3:.2f} ms",
-          flush=True)
+    print(f"train step (tpu_fast, {path}, batch {B} x {S} samples = "
+          f"{audio:.2f} audio-s, device-resident batch) on {card}: "
+          f"{step_s * 1e3:.2f} ms median of 10 = {audio / step_s:.1f} "
+          f"audio-s/s; the plain step (forward and backward only, context) "
+          f"{plain_s * 1e3:.2f} ms", flush=True)
+
+
+# ---------------------------------------------------------------- phase 8
+LOSS_SLICE = (64, 128, 64, 12, 512, 0)  # B, T, C, K, D, shift of tpu_fast
+LOSS_CASES = [(LOSS_SLICE, torch.bfloat16), (LOSS_SLICE, torch.float32),
+              ((3, 20, 6, 3, 40, 3), torch.bfloat16),
+              ((3, 20, 6, 3, 40, 3), torch.float32)]
+LOSS_KERNELS = {
+    "same_step": (same_step_nll_forward, same_step_nll_reference,
+                  same_step_nll_backward, same_step_nll_backward_reference),
+    "allsteps": (allsteps_nll_forward, allsteps_nll_reference,
+                 allsteps_nll_backward, allsteps_nll_backward_reference)}
+# Gradients relative to max |plain|. fp32 differs by summation order: 1e-5
+# where a sum has at most K*B = 768 or C*T = 8 192 terms, 1e-4 for the
+# all-steps dz, a sum over all R = 89 088 rows (1.6e-5 measured). bf16
+# outputs differ by one rounding of the output (2**-9 of an entry) where
+# the fp32 sum lands near a rounding edge.
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+DEEP_SUM_TOL = 1e-4
+
+
+def loss_inputs(B, T, C, K, D, dtype, seed):
+    """Seeded preds_v (B, Tp, K, D), z_pool (C, T, D) and the cotangents of
+    the same-step (T-1, K*B) and all-steps (R,) rows. As on the training
+    path, an fp32 preds_v is the window of the (B, T, K, D) predictions and
+    a bf16 one its contiguous cast."""
+    rng = np.random.default_rng(seed)
+    preds = rng.standard_normal((B, T, K, D)) / np.sqrt(D)
+    z = rng.standard_normal((C, T, D))
+    g = {"same_step": rng.standard_normal((T - 1, K * B)),
+         "allsteps": rng.standard_normal((T - K) * K * B)}
+
+    def dev(a, dt):
+        return torch.from_numpy(a).to("cuda", dt).contiguous()
+    preds_v = dev(preds, torch.float32)[:, :T - K].to(dtype)
+    return (preds_v, dev(z, dtype),
+            {k: dev(v, torch.float32) for k, v in g.items()})
+
+
+def phase8_kernels(card: str) -> dict:
+    """The same-step and all-steps kernels against their plain versions;
+    returns {name: {max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by}}."""
+    errs = {f"{k}_nll_{half}": 0.0 for k in LOSS_KERNELS
+            for half in ("forward", "backward")}
+    with torch.inference_mode():
+        for n, ((B, T, C, K, D, shift), dtype) in enumerate(LOSS_CASES):
+            preds_v, z, gs = loss_inputs(B, T, C, K, D, dtype, seed=40 + n)
+            for kind, (fwd, fwd_ref, bwd, bwd_ref) in LOSS_KERNELS.items():
+                what = f"{kind} {(B, T, C, K, D)} shift {shift} " \
+                       f"{str(dtype)[6:]}"
+                nll, cor, lse = fwd(preds_v, z, shift)
+                r_nll, r_cor, r_lse = fwd_ref(preds_v, z, shift)
+                torch.cuda.synchronize()
+                check(nll.shape == r_nll.shape, f"{what}: {nll.shape}")
+                check(bool(torch.isfinite(nll).all()), f"{what}: non-finite")
+                err = max((nll - r_nll).abs().max().item(),
+                          (lse - r_lse).abs().max().item())
+                miss = (cor != r_cor).float().mean().item()
+                name = f"{kind}_nll_forward"
+                errs[name] = max(errs[name], err)
+                print(f"{name} vs plain {what}: nll/lse max abs err "
+                      f"{err:.3e} (tol {NLL_TOL:.0e}), argmax mismatch "
+                      f"share {miss:.2e} (tol {MISMATCH_TOL:.0e})",
+                      flush=True)
+                check(err <= NLL_TOL and miss <= MISMATCH_TOL,
+                      f"{what} forward error {err}, mismatch {miss}")
+                got = bwd(gs[kind], r_lse, preds_v, z, shift)
+                again = bwd(gs[kind], r_lse, preds_v, z, shift)
+                want = bwd_ref(gs[kind], r_lse, preds_v, z, shift)
+                torch.cuda.synchronize()
+                name = f"{kind}_nll_backward"
+                for out, a, a2, b in zip(("dpreds", "dz"), got, again, want):
+                    check(a.dtype == b.dtype == dtype and a.shape == b.shape,
+                          f"{what} {out}: {a.dtype} {tuple(a.shape)}")
+                    check(torch.equal(a, a2),
+                          f"{what} {out} differs between two runs")
+                    abs_err = (a.float() - b.float()).abs().max().item()
+                    err = abs_err / b.float().abs().max().item()
+                    deep = (kind, out, dtype) == ("allsteps", "dz",
+                                                  torch.float32)
+                    tol = DEEP_SUM_TOL if deep else GRAD_TOL[dtype]
+                    errs[name] = max(errs[name], abs_err)
+                    print(f"{name} vs plain {what} {out}: max abs err "
+                          f"{abs_err:.3e}, relative to max |plain| "
+                          f"{err:.3e} (tol {tol:.0e}); two runs "
+                          f"bit-identical", flush=True)
+                    check(err <= tol, f"{what} {out} error {err} > {tol}")
+                if kind == "same_step":
+                    check(got[1][:, 0].abs().max().item() == 0.0,
+                          f"{what}: dz[:, 0] is not zero")
+
+        B, T, C, K, D, shift = LOSS_SLICE
+        preds_v, z, gs = loss_inputs(B, T, C, K, D, torch.bfloat16, seed=40)
+        # the products, forward: same-step scores over the valid (t, k)
+        # rows, all-steps scores of R rows against N = C*T columns;
+        # backward: the scores again and the two contractions
+        flops = {"same_step": 2 * (T - K) * K * B * C * D,
+                 "allsteps": 2 * (T - K) * K * B * C * T * D}
+        out = {}
+        for kind, (fwd, fwd_ref, bwd, bwd_ref) in LOSS_KERNELS.items():
+            reps = 20 if kind == "same_step" else 5
+            fwd_outs = fwd_ref(preds_v, z, shift)
+            lse, g = fwd_outs[2], gs[kind]
+            out[f"{kind}_nll_forward"] = {
+                "ms": cuda_ms(lambda: fwd(preds_v, z, shift), reps=reps),
+                "plain_ms": cuda_ms(lambda: fwd_ref(preds_v, z, shift),
+                                    reps=reps),
+                **bound([preds_v, z, *fwd_outs], flops[kind])}
+            bwd_outs = bwd(g, lse, preds_v, z, shift)
+            out[f"{kind}_nll_backward"] = {
+                "ms": cuda_ms(lambda: bwd(g, lse, preds_v, z, shift),
+                              reps=reps),
+                "plain_ms": cuda_ms(lambda: bwd_ref(g, lse, preds_v, z,
+                                                    shift), reps=reps),
+                **bound([g, lse, preds_v, z, *bwd_outs], 3 * flops[kind])}
+    for name, m in out.items():
+        m.update(max_abs_err=errs[name], library_ms=None)
+        print(f"time {name} at tpu_fast's shape, bf16, on {card}: kernel "
+              f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
+              f"{m['bound_ms']:.4f} ms by {m['bound_by']}", flush=True)
+    return out
 
 
 def main() -> None:
@@ -377,10 +632,6 @@ def main() -> None:
           f"{_build.library_path().name}", flush=True)
 
     # 3. kernel vs plain, on the same CUDA tensors
-    # cuDNN's GRU, timed for context only. cuDNN does not flatten bf16 RNN
-    # weights, so torch warns; the per-call copy it makes is 0.8 MB
-    cudnn = torch.nn.GRU(SLICE_SHAPE[2], SLICE_SHAPE[2]).to("cuda",
-                                                           torch.bfloat16)
     max_err = 0.0
     with torch.inference_mode():
         for n, ((T, B, H), dtype) in enumerate(CASES):
@@ -399,14 +650,17 @@ def main() -> None:
 
         T, B, H = SLICE_SHAPE
         args = gru_inputs(T, B, H, torch.bfloat16, seed=0)
-        ms = cuda_ms(lambda: gru_scan(*args))
-        plain_ms = cuda_ms(lambda: gru_scan_reference(*args))
-        x = args[0][..., :H].contiguous()
-        h0 = args[3][None].to(torch.bfloat16)
-        cudnn_ms = cuda_ms(lambda: cudnn(x, h0))
-    print(f"time {SLICE_SHAPE} bf16 on {card}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.nn.GRU (cuDNN, context only) "
-          f"{cudnn_ms:.4f} ms", flush=True)
+        cudnn, x, h0 = cudnn_gru(T, B, H)
+        gru_fwd = {"max_abs_err": max_err,
+                   "ms": cuda_ms(lambda: gru_scan(*args)),
+                   "plain_ms": cuda_ms(lambda: gru_scan_reference(*args)),
+                   "library_ms": cuda_ms(lambda: cudnn(x, h0)),
+                   **bound([*args, gru_scan(*args)], 2 * T * B * H * 3 * H)}
+    print(f"time {SLICE_SHAPE} bf16 on {card}: kernel {gru_fwd['ms']:.4f} "
+          f"ms, plain {gru_fwd['plain_ms']:.4f} ms, bound "
+          f"{gru_fwd['bound_ms']:.4f} ms by {gru_fwd['bound_by']}, "
+          f"torch.nn.GRU (cuDNN, yardstick only) {gru_fwd['library_ms']:.4f} "
+          f"ms", flush=True)
 
     # 4. the slice: tpu_fast at full width, random weights from a seed
     cfg = presets.tpu_fast()
@@ -461,23 +715,41 @@ def main() -> None:
           f"{audio_s / steady:.1f} audio-s/s", flush=True)
 
     # 5-7. the training slice
-    measured = phase5_kernels(card)
-    counts = phase6_train()
-    phase7_step(card)
+    measured = {"gru_scan": gru_fwd, **phase5_kernels(card)}
+    counts = train_through_cli("fused")
+    step_vs_plain(card, "fused", ("gar.layer0.wh", "prediction_heads.weight"))
 
-    measured["gru_scan"] = (max_err, ms, plain_ms)
+    # 8-10. the other two loss paths
+    measured.update(phase8_kernels(card))
+    last_encoder = f"encoder.conv{len(cfg.model.encoder.channels) - 1}.weight"
+    for path in ("all_steps", "fuse_heads=false"):
+        run = train_through_cli(path)
+        counts.update({name: run[name] for name in LOSS_PATHS[path][1]})
+    for path in ("all_steps", "fuse_heads=false"):
+        step_vs_plain(card, path, ("prediction_heads.weight", last_encoder))
+
     sources = {
         "gru_scan": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:57"),
         "gru_scan_backward": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:82"),
         "heads_nll_forward": ("infonce_fused.cu",
                               "cpc_tpu/ops/infonce_fused.py:70"),
         "heads_nll_backward": ("infonce_fused.cu",
-                               "cpc_tpu/ops/infonce_fused.py:97")}
+                               "cpc_tpu/ops/infonce_fused.py:97"),
+        "same_step_nll_forward": ("infonce_same_step.cu",
+                                  "cpc_tpu/ops/infonce_pallas.py:103"),
+        "same_step_nll_backward": ("infonce_same_step.cu",
+                                   "cpc_tpu/ops/infonce_pallas.py:124"),
+        "allsteps_nll_forward": ("infonce_allsteps.cu",
+                                 "cpc_tpu/ops/infonce_allsteps_pallas.py:55"),
+        "allsteps_nll_backward": (
+            "infonce_allsteps.cu",
+            "cpc_tpu/ops/infonce_allsteps_pallas.py:100")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"cpc_tpu_torch/csrc/{src}", "replaces": tpu,
-        "launches": counts[name], "max_abs_err": measured[name][0],
-        "ms": measured[name][1], "plain_ms": measured[name][2]}
+        "launches": counts[name], **{k: measured[name][k] for k in keys}}
         for name, (src, tpu) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

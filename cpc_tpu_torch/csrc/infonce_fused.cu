@@ -72,22 +72,16 @@ __device__ __forceinline__ void score_tile(const T* __restrict__ p_blk,
                                            size_t kd, int b0, int batch,
                                            int c0, int pool, int D,
                                            float (&acc)[4][4], TileSmem& s) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  tile_mm<true, true>(
-      D,
-      [&](int d, int m) -> float {
+  cpc::score_tile<T>(
+      [&](int m) -> const T* {
         const int b = b0 + m;
-        return b < batch ? to_f32(p_blk[static_cast<size_t>(b) * kd + d])
-                         : 0.f;
+        return b < batch ? p_blk + static_cast<size_t>(b) * kd : nullptr;
       },
-      [&](int d, int n) -> float {
+      [&](int n) -> const T* {
         const int c = c0 + n;
-        return c < pool ? to_f32(z_blk[static_cast<size_t>(c) * D + d]) : 0.f;
+        return c < pool ? z_blk + static_cast<size_t>(c) * D : nullptr;
       },
-      acc, s);
+      D, acc, s);
 }
 
 // Grid (T*K, ceil(B / 64)); block kTileThreads.

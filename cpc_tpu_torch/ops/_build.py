@@ -112,12 +112,20 @@ def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call, with every C
     function's signature declared."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
         "gru_scan_fwd": [ptr] * 5 + [i32] * 5 + [ptr],
         "gru_scan_bwd": [ptr] * 14 + [i32] * 6 + [ptr],
         "heads_nll_fwd": [ptr] * 5 + [i32] * 8 + [ptr],
         "heads_nll_bwd": [ptr] * 7 + [i32] * 9 + [ptr],
+        "same_step_nll_fwd": [ptr] * 5 + [i32] * 6 + [i64] * 4 + [i32] * 2
+        + [ptr],
+        "same_step_nll_bwd": [ptr] * 7 + [i32] * 6 + [i64] * 4 + [i32] * 2
+        + [ptr],
+        "allsteps_nll_fwd": [ptr] * 5 + [i32] * 6 + [i64] * 2 + [i32] * 2
+        + [ptr],
+        "allsteps_nll_bwd": [ptr] * 6 + [i32] * 6 + [i64] * 2 + [i32] * 2
+        + [ptr],
         "gru_scan_max_hidden": [],
     }
     for name, args in signatures.items():

@@ -17,10 +17,17 @@ argument: `pool` (C, T, D), default z, and `shift`, the row of the pool
 where this batch's positives start. A cross-replica pool is then z
 all-gathered over the replicas and shift = rank * B.
 
-`use_pallas` asks for a kernel. The fused heads + InfoNCE kernel takes c
-and the heads' weight, not preds, and is `ops.infonce_fused`. The K-tiled
-kernel on preds (ROADMAP.md §B4) and the all-steps kernel (§B6) are not
-ported yet: their routes raise, on any device.
+`use_pallas` asks for a kernel on materialized preds, as in the JAX
+package: preds[:, :Tp] and the pool are cast to the wire dtype (bf16 with
+`pallas_bf16`, else fp32) and go to `ops.infonce_cuda.fused_infonce`, which
+runs the same-step kernels or hands over to the all-steps kernels of
+`ops.infonce_allsteps_cuda`. A CPU tensor runs their plain versions, a CUDA
+tensor the kernels, which run or raise. The fused heads + InfoNCE kernel
+takes c and the heads' weight, not preds, and is `ops.infonce_fused`. The
+JAX package's `ring=True` is not ported (ROADMAP.md §A13).
+
+`WIRE_DTYPES`, `check_labels` and `on_device` are shared by the three kernel
+modules.
 """
 
 from __future__ import annotations
@@ -28,6 +35,26 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+WIRE_DTYPES = (torch.float32, torch.bfloat16)  # what the kernels take
+
+
+def check_labels(B: int, C: int, shift: int) -> None:
+    """The positives shift..shift+B-1 must be rows of the pool: a label
+    outside it would score 0 in a kernel and in its plain version alike."""
+    if shift < 0 or shift + B > C:
+        raise ValueError(f"positives {shift}..{shift + B - 1} lie outside "
+                         f"the pool of {C} candidates")
+
+
+def on_device(t: torch.Tensor, cpu_fn, cuda_fn, *args):
+    """cpu_fn(*args) for a CPU tensor t, cuda_fn(*args) for a CUDA one."""
+    if t.device.type == "cpu":
+        return cpu_fn(*args)
+    if t.device.type != "cuda":
+        raise ValueError(f"the InfoNCE kernels run on cpu or cuda, not "
+                         f"{t.device}")
+    return cuda_fn(*args)
 
 
 def stacked_targets(z: torch.Tensor, num_steps: int) -> torch.Tensor:
@@ -65,26 +92,25 @@ def infonce_loss_and_metrics(
     pool: Optional[torch.Tensor] = None,
     shift: int = 0,
     use_pallas: bool = False,
+    pallas_bf16: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """InfoNCE loss + per-k accuracy.
 
     preds (B, T, K, D) predictions W_k c_t; z (B, T, D) encoder latents;
     pool (C, T, D) the candidates, default z; shift the pool row of this
-    batch's first positive. Returns (loss, {"loss", "acc" (K,),
-    "acc_mean"})."""
+    batch's first positive; use_pallas routes scoring, softmax and argmax
+    through the kernels, on a bf16 wire with pallas_bf16. Returns
+    (loss, {"loss", "acc" (K,), "acc_mean"})."""
     B, T, K, D = preds.shape
     Tp = T - K
     if negatives not in ("same_step", "all_steps"):
         raise ValueError(f"unknown negatives mode {negatives!r}")
-    if use_pallas:
-        item = "§B4 (the K-tiled same-step kernel, cpc_tpu/ops/infonce_pallas.py)" \
-            if negatives == "same_step" else \
-            "§B6 (the all-steps kernel, cpc_tpu/ops/infonce_allsteps_pallas.py)"
-        raise NotImplementedError(
-            f"loss.use_pallas on materialized preds needs the kernel of "
-            f"ROADMAP.md {item}, not ported yet; set loss.fuse_heads=True "
-            f"(same_step) or loss.use_pallas=False")
     pool = z if pool is None else pool
+    if use_pallas:
+        from cpc_tpu_torch.ops.infonce_cuda import fused_infonce
+        kdtype = torch.bfloat16 if pallas_bf16 else torch.float32
+        return fused_infonce(preds[:, :Tp].to(kdtype), pool.to(kdtype),
+                             negatives=negatives, shift=shift)
     preds_v = preds[:, :Tp].float()
     pool = pool.float()
     dev = preds.device

@@ -39,9 +39,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from cpc_tpu_torch.ops._build import check_launch, load_library
-from cpc_tpu_torch.ops.infonce import first_argmax
-
-_WIRE_DTYPES = (torch.float32, torch.bfloat16)
+from cpc_tpu_torch.ops.infonce import (WIRE_DTYPES, check_labels,
+                                       first_argmax, on_device)
 
 
 def validity_mask_tm(T: int, K: int, B: int, Tp: int,
@@ -105,14 +104,6 @@ def heads_nll_backward_reference(g_nll: torch.Tensor, lse: torch.Tensor,
     return dz, dp
 
 
-def _check_labels(B: int, C: int, shift: int) -> None:
-    """The positives shift..shift+B-1 must be rows of the pool: a label
-    outside it would score 0 in the kernel and in the plain version alike."""
-    if shift < 0 or shift + B > C:
-        raise ValueError(f"positives {shift}..{shift + B - 1} lie outside "
-                         f"the pool of {C} candidates")
-
-
 def _check(p: torch.Tensor, z_tm: torch.Tensor, K: int, shift: int) -> None:
     """Raises on anything the kernels do not take."""
     if p.dim() != 3 or z_tm.dim() != 3:
@@ -124,9 +115,9 @@ def _check(p: torch.Tensor, z_tm: torch.Tensor, K: int, shift: int) -> None:
                          f"do not fit K={K}")
     if min(T, B, KD, z_tm.shape[1]) < 1:
         raise ValueError(f"empty input {tuple(p.shape)} {tuple(z_tm.shape)}")
-    _check_labels(B, z_tm.shape[1], shift)
-    if p.dtype not in _WIRE_DTYPES or z_tm.dtype != p.dtype:
-        raise TypeError(f"p and z_tm must share a dtype in {_WIRE_DTYPES}, "
+    check_labels(B, z_tm.shape[1], shift)
+    if p.dtype not in WIRE_DTYPES or z_tm.dtype != p.dtype:
+        raise TypeError(f"p and z_tm must share a dtype in {WIRE_DTYPES}, "
                         f"got {p.dtype} and {z_tm.dtype}")
     for name, t in (("p", p), ("z_tm", z_tm)):
         if t.device != p.device:
@@ -178,20 +169,12 @@ def _launch_bwd(g_nll, lse, p, z_tm, shift, K):
     return dz, dp
 
 
-def _on(t: torch.Tensor, cpu_fn, cuda_fn, *args):
-    if t.device.type == "cpu":
-        return cpu_fn(*args)
-    if t.device.type != "cuda":
-        raise ValueError(f"fused heads run on cpu or cuda, not {t.device}")
-    return cuda_fn(*args)
-
-
 def heads_nll_forward(p: torch.Tensor, z_tm: torch.Tensor, shift: int,
                       K: int):
     """(nll, correct, lse). CPU tensors run `heads_nll_reference`; CUDA
     tensors run the kernel, and `heads_nll_forward.launches` counts its
     launches."""
-    return _on(p, heads_nll_reference, _launch_fwd, p, z_tm, shift, K)
+    return on_device(p, heads_nll_reference, _launch_fwd, p, z_tm, shift, K)
 
 
 def heads_nll_backward(g_nll: torch.Tensor, lse: torch.Tensor,
@@ -200,8 +183,8 @@ def heads_nll_backward(g_nll: torch.Tensor, lse: torch.Tensor,
     """(dz, dp). CPU tensors run `heads_nll_backward_reference`; CUDA tensors
     run the kernels, and `heads_nll_backward.launches` counts the
     launches."""
-    return _on(p, heads_nll_backward_reference, _launch_bwd, g_nll, lse, p,
-               z_tm, shift, K)
+    return on_device(p, heads_nll_backward_reference, _launch_bwd, g_nll,
+                     lse, p, z_tm, shift, K)
 
 
 heads_nll_forward.launches = 0
@@ -298,7 +281,7 @@ def fused_heads_infonce(
         raise ValueError(
             f"sequence of {T} latents is too short for K={K} offsets")
     pool = z if pool is None else pool
-    _check_labels(B, pool.shape[0], int(shift))
+    check_labels(B, pool.shape[0], int(shift))
     if compute_dtype is not None:
         c, pool, W = (t.to(compute_dtype) for t in (c, pool, W))
     c_tm = c if c_time_major else c.transpose(0, 1)

@@ -1,9 +1,11 @@
 """Where a training step's time goes on the GPU:
 
     python -m cpc_tpu_torch.train.profile_step [--config tpu_fast]
-        [--steps 5] [--table FILE]
+        [--set PATH=VAL ...] [--steps 5] [--table FILE]
 
-Builds the step of `--config` at full width with random weights (seed 0)
+Builds the step of `--config` (with the `--set` overrides, as the training
+CLI takes them: `--set model.loss.negatives=all_steps` profiles the
+all-steps loss path) at full width with random weights (seed 0)
 and one seeded int16 batch, as `chip_smoke.py` phase 7 does, with the
 trainer's own backend settings. It prints the card's name and power limit,
 then:
@@ -35,7 +37,7 @@ import torch
 
 # (stage, substrings of a kernel's name), first match wins: the port's own
 # kernels, then cuDNN's convolutions (whose implicit-GEMM kernels also say
-# "gemm"), then cuBLAS
+# "gemm"), then cuBLAS (whose Hopper kernels are named nvjet_*)
 STAGES = (
     ("GRU backward recurrence kernel", ("gru_scan_bwd_kernel",)),
     ("GRU forward kernel", ("gru_scan_fwd_kernel",)),
@@ -43,10 +45,16 @@ STAGES = (
     ("fused heads + InfoNCE forward kernel", ("heads_nll_fwd",)),
     ("fused heads + InfoNCE backward kernels",
      ("heads_delta", "heads_dz", "heads_dp")),
+    ("same-step InfoNCE forward kernel", ("same_step_fwd",)),
+    ("same-step InfoNCE backward kernels",
+     ("same_step_delta", "same_step_dz", "same_step_dp")),
+    ("all-steps InfoNCE forward kernel", ("allsteps_fwd",)),
+    ("all-steps InfoNCE backward dP kernel", ("allsteps_dp",)),
+    ("all-steps InfoNCE backward dZ kernel", ("allsteps_dz",)),
     ("conv encoder (cuDNN, with its layout transposes)",
      ("conv", "fprop", "dgrad", "wgrad", "nchw", "nhwc", "cudnn")),
     ("matmuls (cuBLAS): heads product, folds, GRU projections",
-     ("gemm", "cublas")),
+     ("gemm", "cublas", "nvjet")),
 )
 OTHER = "the rest: optimizer, elementwise, casts, reductions"
 
@@ -87,6 +95,9 @@ def _event_ms(fn: Callable[[], object], n: int = 10) -> float:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="cpc_tpu_torch.train.profile_step")
     p.add_argument("--config", default="tpu_fast")
+    p.add_argument("--set", action="append", default=[], metavar="PATH=VAL",
+                   dest="overrides",
+                   help="override a config field by dotted path; repeatable")
     p.add_argument("--steps", type=int, default=5,
                    help="steps under the profiler")
     p.add_argument("--table", default=None,
@@ -97,7 +108,7 @@ def main(argv=None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from cpc_tpu_torch.config import presets
+    from cpc_tpu_torch.config import apply_overrides, presets
     from cpc_tpu_torch.data.loader import device_prepare, to_device
     from cpc_tpu_torch.ops import _build
     from cpc_tpu_torch.train.train_step import init_state, make_step_fns
@@ -109,6 +120,8 @@ def main(argv=None) -> int:
     print(f"gpu: {card}", flush=True)
     _build.load_library()
     cfg = presets.by_name(args.config)
+    if args.overrides:
+        cfg = apply_overrides(cfg, args.overrides)
     model = init_state(cfg, "cuda")
     steps = make_step_fns(cfg, model)
     B, S = cfg.data.batch_size, cfg.data.snippet_samples
@@ -119,7 +132,8 @@ def main(argv=None) -> int:
         steps.train_step(dev)
 
     fmt = "median {:.2f} ms (min {:.2f}, max {:.2f}) of 10"
-    print(f"{args.config} step, batch {B} x {S}, on {card}:", flush=True)
+    print(f"{args.config} {' '.join(args.overrides)} step, batch {B} x {S}, "
+          f"on {card}:", flush=True)
     print("  device-resident batch: "
           + fmt.format(*_host_ms(lambda: steps.train_step(dev))))
     print("  batch from the host each step: " + fmt.format(

@@ -176,7 +176,8 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel) -> StepFns:
         out = model(x)
         return infonce_loss_and_metrics(
             out.preds, out.z, negatives=loss_cfg.negatives,
-            use_pallas=loss_cfg.use_pallas)
+            use_pallas=loss_cfg.use_pallas,
+            pallas_bf16=loss_cfg.pallas_bf16)
 
     def train_step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One optimizer step. With accum_steps > 1 the batch splits into

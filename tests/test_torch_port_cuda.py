@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, each against its plain version on
-the same CUDA tensors: the GRU recurrence forward and backward, and the
-fused heads + InfoNCE forward and backward; then the extraction slice and a
-training step on the card against the same on the CPU.
+the same CUDA tensors: the GRU recurrence forward and backward, the fused
+heads + InfoNCE forward and backward, and the same-step and all-steps
+InfoNCE on materialized predictions, forward and backward; then the
+extraction slice and a training step of each loss path on the card against
+the same on the CPU.
 
 Every test here is marked `cuda` and skips without a GPU. The file imports
 no jax, so it also runs where jax is not installed, without the suite's
@@ -20,6 +22,13 @@ from cpc_tpu_torch.config import (ArConfig, EncoderConfig, LossConfig,
 from cpc_tpu_torch.ops.gru_cuda import (gru_scan, gru_scan_backward,
                                         gru_scan_backward_reference,
                                         gru_scan_reference)
+from cpc_tpu_torch.ops.infonce_allsteps_cuda import (
+    allsteps_nll_backward, allsteps_nll_backward_reference,
+    allsteps_nll_forward, allsteps_nll_reference)
+from cpc_tpu_torch.ops.infonce_cuda import (same_step_nll_backward,
+                                            same_step_nll_backward_reference,
+                                            same_step_nll_forward,
+                                            same_step_nll_reference)
 from cpc_tpu_torch.ops.infonce_fused import (heads_nll_backward,
                                              heads_nll_backward_reference,
                                              heads_nll_forward,
@@ -148,13 +157,106 @@ def test_heads_kernels_reject_what_they_do_not_take():
                           0, 2)
 
 
-def test_train_step_on_card_matches_cpu():
+def _preds_inputs(B, T, C, K, D, dtype, seed=0, window_view=True):
+    """Seeded preds_v (B, Tp, K, D), as the window of a (B, T, K, D) array
+    or contiguous, z_pool (C, T, D) and the two cotangents."""
+    rng = np.random.default_rng(seed)
+    preds = torch.from_numpy(rng.standard_normal((B, T, K, D)) / np.sqrt(D))
+    z = torch.from_numpy(rng.standard_normal((C, T, D)))
+    g_same = torch.from_numpy(rng.standard_normal((T - 1, K * B)))
+    g_all = torch.from_numpy(rng.standard_normal(((T - K) * K * B,)))
+    preds_v = preds.to("cuda", dtype)[:, :T - K]
+    if not window_view:
+        preds_v = preds_v.contiguous()
+    return (preds_v, z.to("cuda", dtype), g_same.to("cuda", torch.float32),
+            g_all.to("cuda", torch.float32))
+
+
+LOSS_KERNELS = {
+    "same_step": (same_step_nll_forward, same_step_nll_reference,
+                  same_step_nll_backward, same_step_nll_backward_reference),
+    "all_steps": (allsteps_nll_forward, allsteps_nll_reference,
+                  allsteps_nll_backward, allsteps_nll_backward_reference)}
+# (B, T, C, K, D, shift): tpu_fast; ragged with a shifted pool; more than
+# one row, column and D tile with ragged edges, D beyond one backward block
+LOSS_SHAPES = [(64, 128, 64, 12, 512, 0), (3, 20, 6, 3, 40, 3),
+               (70, 9, 200, 2, 33, 65), (2, 6, 3, 2, 520, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,C,K,D,shift", LOSS_SHAPES)
+@pytest.mark.parametrize("negatives", ["same_step", "all_steps"])
+def test_loss_kernels_match_plain(negatives, B, T, C, K, D, shift, dtype):
+    fwd, fwd_ref, bwd, bwd_ref = LOSS_KERNELS[negatives]
+    preds_v, z, g_same, g_all = _preds_inputs(
+        B, T, C, K, D, dtype, window_view=dtype == torch.float32)
+    g = g_same if negatives == "same_step" else g_all
+    before = (fwd.launches, bwd.launches)
+    nll, cor, lse = fwd(preds_v, z, shift)
+    r_nll, r_cor, r_lse = fwd_ref(preds_v, z, shift)
+    torch.cuda.synchronize()
+    assert nll.shape == r_nll.shape
+    assert (nll - r_nll).abs().max().item() <= 1e-4
+    assert (lse - r_lse).abs().max().item() <= 1e-4
+    assert (cor != r_cor).float().mean().item() <= 1e-4  # near-ties only
+    dp, dz = bwd(g, r_lse, preds_v, z, shift)
+    r_dp, r_dz = bwd_ref(g, r_lse, preds_v, z, shift)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert dp.dtype == dz.dtype == dtype and dp.is_contiguous()
+    assert dp.shape == preds_v.shape and dz.shape == z.shape
+    assert _rel(dp, r_dp) <= REL[dtype]
+    # the all-steps dz sums over all R rows (89 088 at tpu_fast), not over
+    # at most K*B = 768: fp32 summation order shows at 1.6e-5 there
+    deep = negatives == "all_steps" and dtype == torch.float32
+    assert _rel(dz, r_dz) <= (1e-4 if deep else REL[dtype])
+    if negatives == "same_step":
+        assert dz[:, 0].abs().max().item() == 0.0
+    # the same result every run: no atomics on the sums
+    dp2, dz2 = bwd(g, r_lse, preds_v, z, shift)
+    assert torch.equal(dp, dp2) and torch.equal(dz, dz2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("negatives", ["same_step", "all_steps"])
+def test_loss_kernels_exact_ties_go_to_the_lowest_column(negatives, dtype):
+    fwd, fwd_ref, _, _ = LOSS_KERNELS[negatives]
+    preds_v, z, _, _ = _preds_inputs(4, 150, 4, 2, 16, dtype)
+    z[1] = z[0]                # candidates 0 and 1 tie at every step
+    z[:, 100:] = z[:, 30:80]   # and ties 70 columns apart, across tiles
+    got, want = fwd(preds_v, z, 0), fwd_ref(preds_v, z, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert 0.0 < want[1].mean().item() < 1.0
+
+
+def test_loss_kernels_reject_what_they_do_not_take():
+    preds_v, z, g_same, _ = _preds_inputs(2, 6, 3, 2, 8, torch.float32)
+    for fwd in (same_step_nll_forward, allsteps_nll_forward):
+        with pytest.raises(TypeError):
+            fwd(preds_v.half(), z.half(), 0)
+        with pytest.raises(ValueError, match="outside the pool"):
+            fwd(preds_v, z, 2)
+        with pytest.raises(ValueError, match="Tp = T - K"):
+            fwd(preds_v[:, :-1], z, 0)
+        with pytest.raises(ValueError, match="contiguous"):
+            fwd(preds_v.transpose(2, 3).contiguous().transpose(2, 3), z, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        allsteps_nll_forward(preds_v, z.transpose(0, 1).contiguous()
+                             .transpose(0, 1), 0)
+    with pytest.raises(ValueError, match="g_nll"):
+        same_step_nll_backward(g_same[:-1], g_same, preds_v, z, 0)
+
+
+@pytest.mark.parametrize("loss", [
+    ["model.loss.fuse_heads=true"], ["model.loss.fuse_heads=false"],
+    ["model.loss.negatives=all_steps"]])
+def test_train_step_on_card_matches_cpu(loss):
     cfg = apply_overrides(presets.baseline(), [
         "model.encoder.channels=16,16,16,16,16", "model.encoder.d_enc=16",
         "model.ar.d_ar=16", "model.ar.use_pallas=true",
         "model.loss.prediction_steps=3", "model.loss.use_pallas=true",
-        "model.loss.fuse_heads=true", "data.batch_size=4",
-        "data.snippet_samples=2560"])
+        "data.batch_size=4", "data.snippet_samples=2560", *loss])
     batch = torch.from_numpy(np.clip(np.random.default_rng(0).standard_normal(
         (4, 2560)) * 5000, -32768, 32767).astype(np.int16))
     metrics, models = [], []

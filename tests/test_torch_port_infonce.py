@@ -2,7 +2,8 @@
 `cpc_tpu.ops.infonce.infonce_loss_and_metrics`, and the plain fused heads +
 InfoNCE (`ops/infonce_fused.py`, the CPU path) against
 `cpc_tpu.ops.infonce_fused.fused_heads_infonce` in interpret mode: loss,
-per-k accuracy and the gradients of c, z and W.
+per-k accuracy and the gradients of c, z and W; and that `use_pallas`
+routes to the kernels' modules.
 
 A cross-replica pool is the JAX side under shard_map on the virtual CPU
 mesh (z all-gathered, labels shifted by axis_index * B); the port gets the
@@ -87,11 +88,22 @@ def test_pool_and_shift_match_cross_replica_jax(negatives):
 
 
 @pytest.mark.parametrize("negatives", ["same_step", "all_steps"])
-def test_unported_kernel_routes_raise(negatives):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §B[46]"):
-        infonce_loss_and_metrics(_t(_rand((B, T, K, D), 0)),
-                                 _t(_rand((B, T, D), 1)),
-                                 negatives=negatives, use_pallas=True)
+def test_kernel_route_equals_plain_route_on_cpu(negatives):
+    # use_pallas routes through ops.infonce_cuda (on the CPU, the kernels'
+    # plain versions); 1e-5: summation order
+    preds, z = _t(_rand((B, T, K, D), 0)), _t(_rand((2 * B, T, D), 1))
+    want = infonce_loss_and_metrics(preds, z[B:], negatives=negatives,
+                                    pool=z, shift=B)
+    got = infonce_loss_and_metrics(preds, z[B:], negatives=negatives,
+                                   pool=z, shift=B, use_pallas=True)
+    bf16 = infonce_loss_and_metrics(preds, z[B:], negatives=negatives,
+                                    pool=z, shift=B, use_pallas=True,
+                                    pallas_bf16=True)
+    np.testing.assert_allclose(got[0].item(), want[0].item(), rtol=1e-5)
+    np.testing.assert_allclose(got[1]["acc"].numpy(), want[1]["acc"].numpy(),
+                               atol=1e-6)
+    # the bf16 wire rounds the inputs: 2**-8 each, so 1e-2 on the loss
+    np.testing.assert_allclose(bf16[0].item(), want[0].item(), rtol=1e-2)
 
 
 def test_argmax_ties_go_to_the_first_maximum():

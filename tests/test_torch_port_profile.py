@@ -15,6 +15,18 @@ from cpc_tpu_torch.train.profile_step import OTHER, main, stage_of
     ("void heads_nll_fwd_kernel<float>(...)", "fused heads + InfoNCE forward"),
     ("void heads_dz_kernel<__nv_bfloat16>(...)",
      "fused heads + InfoNCE backward"),
+    ("void same_step_fwd_kernel<__nv_bfloat16>(...)",
+     "same-step InfoNCE forward"),
+    ("void same_step_delta_kernel<float>(...)", "same-step InfoNCE backward"),
+    ("void same_step_dz_kernel<__nv_bfloat16>(...)",
+     "same-step InfoNCE backward"),
+    ("void same_step_dp_kernel<__nv_bfloat16>(...)",
+     "same-step InfoNCE backward"),
+    ("void allsteps_fwd_kernel<__nv_bfloat16>(...)",
+     "all-steps InfoNCE forward"),
+    ("void allsteps_dp_kernel<__nv_bfloat16>(...)",
+     "all-steps InfoNCE backward dP"),
+    ("void allsteps_dz_kernel<float>(...)", "all-steps InfoNCE backward dZ"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "conv encoder"),
     ("sm90_xmma_wgrad_implicit_gemm_indexed_bf16bf16", "conv encoder"),
@@ -22,6 +34,7 @@ from cpc_tpu_torch.train.profile_step import OTHER, main, stage_of
      "conv encoder"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
      "matmuls"),
+    ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_TNT", "matmuls"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", OTHER),
 ])
 def test_stage_of_kernel_names(name, stage):

@@ -217,6 +217,9 @@ SLICE_MODULES = [
     "cpc_tpu_torch", "cpc_tpu_torch.config", "cpc_tpu_torch.interop",
     "cpc_tpu_torch.ops.dsp", "cpc_tpu_torch.ops.gru_cuda",
     "cpc_tpu_torch.ops.infonce", "cpc_tpu_torch.ops.infonce_fused",
+    "cpc_tpu_torch.ops.infonce_cuda",
+    "cpc_tpu_torch.ops.infonce_allsteps_cuda",
+    "cpc_tpu_torch.train.profile_step",
     "cpc_tpu_torch.ops._build", "cpc_tpu_torch.models.encoder",
     "cpc_tpu_torch.models.gru", "cpc_tpu_torch.models.cpc",
     "cpc_tpu_torch.data.wavio", "cpc_tpu_torch.data.dataset",

@@ -179,14 +179,16 @@ def test_unported_training_modes_raise(change, match):
 
 
 def test_unfused_pallas_loss_raises_and_plain_loss_runs():
+    # the unfused kernel route no longer raises: it runs the same-step
+    # kernels' module (tests/test_torch_port_loss_paths.py holds it against
+    # the JAX package), and equals the plain and the fused loss
     cfg = tcfg.from_dict(jcfg.to_dict(_cfg()))
     loss = dataclasses.replace(cfg.model.loss, fuse_heads=False)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
                                                              loss=loss))
     model = CPCModel(cfg.model, generator=torch.Generator().manual_seed(0))
     batch = torch.from_numpy(_batches(1)[0])
-    with pytest.raises(NotImplementedError, match="§B4"):
-        make_step_fns(cfg, model).train_step(batch)
+    unfused = make_step_fns(cfg, model).loss_fn(model, batch)[0].item()
     plain = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, loss=dataclasses.replace(loss, use_pallas=False)))
     fused = make_step_fns(tcfg.from_dict(jcfg.to_dict(_cfg())), model)
@@ -194,3 +196,5 @@ def test_unfused_pallas_loss_raises_and_plain_loss_runs():
     np.testing.assert_allclose(
         make_step_fns(plain, model).loss_fn(model, batch)[0].item(),
         fused.loss_fn(model, batch)[0].item(), rtol=1e-5)
+    np.testing.assert_allclose(unfused, fused.loss_fn(model, batch)[0].item(),
+                               rtol=1e-5)
