@@ -52,7 +52,33 @@ Phases, in order; any failure exits non-zero:
 10. one full-width step of each of the two paths through the kernels
    against the same step composed from the plain versions: loss, per-k
    accuracy, grad_norm, the grads of the heads' weight and of the last
-   encoder layer; then the steady step time and audio-s/s of each path.
+   encoder layer; then the steady step time and audio-s/s of each path;
+11. the causal flash-attention kernels (forward, dQ, dK/dV) against their
+   plain versions on the same CUDA tensors, at transformer_fast's
+   (B, T, H, Dh) = (64, 128, 8, 32), at a long context (16, 1024, 8, 32)
+   and at a ragged (2, 200, 3, 16), each as bf16 'flash16' (tensor cores),
+   bf16 'flash' and fp32 'flash' (SIMT): o, lse, dq, dk, dv, and the
+   backward twice for bit-identical results; then kernel and plain times
+   at the first two shapes in bf16 'flash16' (the kernels' from the replay
+   of a CUDA graph, since one call runs for microseconds), with
+   `scaled_dot_product_attention(is_causal=True)`, forward and backward, as
+   the library yardstick;
+12. the transformer slice through its entry points:
+   `cpc_tpu_torch.train.cli.main` trains `transformer_fast` at full width
+   for 10 steps with `--set model.ar.attn_impl=flash16`, then `=flash`,
+   then the default `xla`: metrics finite, each attention kernel launched
+   num_layers = 2 times per step (never under `xla`), the fused heads
+   kernels once per step, the GRU kernels never, a checkpoint written; then
+   5 steps at the long context (`--snippet-samples 163840 --batch-size 16`,
+   T = 1 024, on a corpus of 12 s files written here, since the CLI's own
+   synthetic files hold 4 s); then `extract_features` of the `flash16`
+   model over 4 batches of 64 windows: shapes, finiteness, launches, c
+   against the same model on the plain attention, and the rate;
+13. one full-width transformer_fast step through the kernels against the
+   same step composed from the plain versions, `flash16` and `flash`: loss,
+   per-k accuracy, grad_norm, the grads of an attention query weight and of
+   in_proj; then the steady step time and audio-s/s of `xla`, `flash` and
+   `flash16`.
 
 It prints a JSON line of the kernels it checked, each with its launches on
 its main path, its error against its plain version, its time, its plain
@@ -79,7 +105,12 @@ import torch
 from cpc_tpu_torch import CPCModel, extract_features, presets
 from cpc_tpu_torch.config import apply_overrides
 from cpc_tpu_torch.data.loader import device_prepare
+from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
 from cpc_tpu_torch.ops import _build
+from cpc_tpu_torch.ops.attention_cuda import (
+    _FlashPlain, flash_attention_dkv, flash_attention_dkv_reference,
+    flash_attention_dq, flash_attention_dq_reference, flash_attention_forward,
+    flash_attention_forward_reference, row_dot)
 from cpc_tpu_torch.ops.dsp import prepare_waveform
 from cpc_tpu_torch.ops.gru_cuda import (_GruScanPlain, gru_scan,
                                         gru_scan_backward,
@@ -126,20 +157,40 @@ def gru_inputs(T, B, H, dtype, seed):
             dev(h0, torch.float32))
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median over `reps` runs of fn's CUDA-event time, in ms."""
+def cuda_ms(fn, reps=20, warmup=3, inner=1, graph=False):
+    """Median over `reps` runs of fn's CUDA-event time, in ms; each run is
+    `inner` calls between one pair of events. With `graph` the `inner` calls
+    are captured once into a CUDA graph and each run replays it: a call of a
+    few microseconds, which the host cannot enqueue as fast as the card runs
+    it, is then timed without the host's gaps."""
+    if graph:
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for _ in range(warmup):
+                fn()
+            captured = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(captured, stream=stream):
+                for _ in range(inner):
+                    fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        run = captured.replay
+    else:
+        def run():
+            for _ in range(inner):
+                fn()
     for _ in range(warmup):
-        fn()
+        run()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        run()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -335,8 +386,14 @@ COUNTED = {"gru_scan": gru_scan, "gru_scan_backward": gru_scan_backward,
            "same_step_nll_forward": same_step_nll_forward,
            "same_step_nll_backward": same_step_nll_backward,
            "allsteps_nll_forward": allsteps_nll_forward,
-           "allsteps_nll_backward": allsteps_nll_backward}
+           "allsteps_nll_backward": allsteps_nll_backward,
+           "flash_attention_forward": flash_attention_forward,
+           "flash_attention_dq": flash_attention_dq,
+           "flash_attention_dkv": flash_attention_dkv}
 GRU_KERNELS = ("gru_scan", "gru_scan_backward")
+HEADS_KERNELS = ("heads_nll_forward", "heads_nll_backward")
+ATTN_KERNELS = ("flash_attention_forward", "flash_attention_dq",
+                "flash_attention_dkv")
 LOSS_PATHS = {  # the CLI's --set, and the loss kernels the path launches
     "fused": ([], ("heads_nll_forward", "heads_nll_backward")),
     "all_steps": (["--set", "model.loss.negatives=all_steps"],
@@ -347,18 +404,28 @@ LOSS_PATHS = {  # the CLI's --set, and the loss kernels the path launches
 
 
 def train_through_cli(path: str) -> dict:
-    """Trains tpu_fast through the CLI's main on the loss path `path`, with
-    every count set to 0 just before; returns every kernel's launch count,
-    checked: the GRU's and the path's kernels once per step, the others
-    never."""
+    """Trains tpu_fast through the CLI's main on the loss path `path`;
+    returns every kernel's launch count, checked: the GRU's and the path's
+    kernels once per step, the others never."""
     extra, launched = LOSS_PATHS[path]
+    return train_cli_run(path, "tpu_fast", extra, TRAIN_STEPS,
+                         {k: 1 for k in GRU_KERNELS + launched})
+
+
+def train_cli_run(label: str, config: str, extra, steps: int,
+                  per_step: dict) -> dict:
+    """Trains `config` through `cpc_tpu_torch.train.cli.main` for `steps`
+    steps with the arguments `extra`, every count set to 0 just before.
+    Checks the metrics, the checkpoint and every kernel's launch count:
+    per_step[name] per step, 0 for a kernel it does not name. Returns the
+    counts."""
     for fn in COUNTED.values():
         fn.launches = 0
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
-        rc = train_cli.main(["--config", "tpu_fast", "--data", "synthetic",
-                             "--steps", str(TRAIN_STEPS), "--workdir",
-                             workdir, *extra])
+        rc = train_cli.main(["--config", config, "--data", "synthetic",
+                             "--steps", str(steps), "--workdir", workdir,
+                             *extra])
         wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in COUNTED.items()}
         check(rc == 0, f"train cli returned {rc}")
@@ -370,32 +437,53 @@ def train_through_cli(path: str) -> dict:
                 vals = v if isinstance(v, list) else [v]
                 check(all(not isinstance(x, float) or math.isfinite(x)
                           for x in vals), f"non-finite metric {k}: {v}")
-        check(recs[-1]["step"] == TRAIN_STEPS, f"last step {recs[-1]}")
+        check(recs[-1]["step"] == steps, f"last step {recs[-1]}")
         ckpts = os.listdir(os.path.join(workdir, "checkpoints"))
-        check(f"step_{TRAIN_STEPS}.pt" in ckpts, f"checkpoints: {ckpts}")
-    print(f"train ({path}): {TRAIN_STEPS} steps of tpu_fast through "
+        check(f"step_{steps}.pt" in ckpts, f"checkpoints: {ckpts}")
+    print(f"train ({label}): {steps} steps of {config} through "
           f"cpc_tpu_torch.train.cli.main in {wall:.2f} s (corpus, build "
           f"and warm-up included); last log {json.dumps(recs[-1])}; "
           f"launches {counts}", flush=True)
     for name, n in counts.items():
-        want = TRAIN_STEPS if name in GRU_KERNELS + launched else 0
-        check(n == want, f"{path}: {name} launched {n} times, expected "
+        want = steps * per_step.get(name, 0)
+        check(n == want, f"{label}: {name} launched {n} times, expected "
               f"{want}")
     return counts
 
 
 # --------------------------------------------------------- phases 7 and 10
+def plain_context(gar, z):
+    """c (B, T, d_ar) of the transformer gar `gar` with its attention on the
+    plain Function: CausalTransformer.forward (no dropout, no remat)
+    composed from the module's own parts."""
+    x = gar.in_proj(z) + gar.pos_embed[:z.shape[1]].to(gar.dtype)[None]
+    for blk in gar.blocks():
+        attn = blk.attn
+        q, k, v = (attn.heads(proj, blk.ln_attn(x))
+                   for proj in (attn.query, attn.key, attn.value))
+        o = _FlashPlain.apply(q, k, v, float(q.shape[-1]) ** -0.5,
+                              attn.p_dtype)
+        x = x + attn.out(o.reshape(x.shape))
+        x = x + blk.mlp(x)
+    return gar.final_norm(x)
+
+
 def plain_loss(model, batch, cfg):
     """The loss of `cfg` composed from the model's modules and the plain
-    GRU and loss Functions (the package has no switch for this)."""
+    GRU, attention and loss Functions (the package has no switch for
+    this)."""
     loss = cfg.model.loss
     K = loss.prediction_steps
     kd = torch.bfloat16 if loss.pallas_bf16 else torch.float32
     z = model.encoder(device_prepare(batch, cfg.data.normalize))
-    h = z
-    for layer in model.gar.layers():
-        hs = _GruScanPlain.apply(*layer.scan_inputs(h, None))  # (T, B, H)
-        h = hs.transpose(0, 1)
+    if cfg.model.ar.kind == "transformer":
+        h = plain_context(model.gar, z)
+        hs = h.transpose(0, 1)
+    else:
+        h = z
+        for layer in model.gar.layers():
+            hs = _GruScanPlain.apply(*layer.scan_inputs(h, None))  # (T, B, H)
+            h = hs.transpose(0, 1)
     B, T, _ = z.shape
     if loss.fuse_heads and loss.negatives == "same_step":
         W = model.prediction_heads.weight.t().to(kd)
@@ -424,12 +512,31 @@ STEP_TOL = {"loss": 1e-6, "acc": 4e-4, "grad_norm": 1e-5, "grad": 1e-4,
             "grad_of_max": 1e-2}
 
 
-def step_vs_plain(card: str, path: str, watched_names) -> None:
-    """One full-width tpu_fast step of loss path `path` through the kernels
-    against the same step through the plain versions, then its steady
+# The transformer step, kernels against plain. Under 'flash16' the kernels
+# round P and dS to bf16 relative to a running max over 64-wide tiles, the
+# plain versions relative to the row's max; under 'flash' the attention
+# differs by fp32 summation order only. Either way o is then rounded to
+# bf16, an entry near a rounding edge lands one bf16 ulp (2**-8) apart, and
+# two blocks, the heads and the loss carry that on, so the bounds are wider
+# than STEP_TOL's but for grad_of_max. Measured on an H100 80GB HBM3 at
+# 700 W, flash16 and flash: loss 1.6e-6 and 8.3e-7, acc 4.0e-4 (3 rows of
+# 7 424) and 1.3e-4 (1 row), grad_norm 6.4e-6 and 4.6e-5, grads 7.6e-6 (query
+# weight) and 2.4e-4 (in_proj) absolute, 5.6e-3 and 4.6e-3 of their largest
+# entry.
+TRANSFORMER_STEP_TOL = {"loss": 1e-5, "acc": 1e-3, "grad_norm": 1e-4,
+                        "grad": 1e-3, "grad_of_max": 2e-2}
+
+
+def step_vs_plain(card: str, path: str, watched_names, config="tpu_fast",
+                  overrides=None, tols=None, compare=True) -> None:
+    """One full-width step of `config` (loss path `path` of tpu_fast unless
+    `overrides` are given) through the kernels against the same step
+    through the plain versions (unless not `compare`), then its steady
     time."""
-    cfg = presets.tpu_fast()
-    overrides = [a for a in LOSS_PATHS[path][0] if a != "--set"]
+    cfg = presets.by_name(config)
+    tols = tols or STEP_TOL
+    if overrides is None:
+        overrides = [a for a in LOSS_PATHS[path][0] if a != "--set"]
     if overrides:
         cfg = apply_overrides(cfg, overrides)
     model = init_state(cfg, "cuda")
@@ -440,31 +547,33 @@ def step_vs_plain(card: str, path: str, watched_names) -> None:
     params = dict(model.named_parameters())
     watched = {k: params[k] for k in watched_names}
     results = []
-    for loss_fn in (steps.loss_fn, lambda m, b: plain_loss(m, b, cfg)):
+    loss_fns = (steps.loss_fn, lambda m, b: plain_loss(m, b, cfg))
+    for loss_fn in loss_fns if compare else ():
         model.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(model, batch)
         loss.backward()
         results.append((metrics["loss"].item(), metrics["acc"].float().cpu(),
                         global_norm(p.grad for p in model.parameters()).item(),
                         {k: p.grad.clone() for k, p in watched.items()}))
-    (loss, acc, gn, grads), (p_loss, p_acc, p_gn, p_grads) = results
-    errs = {"loss": abs(loss - p_loss) / abs(p_loss),
-            "acc": (acc - p_acc).abs().max().item(),
-            "grad_norm": abs(gn - p_gn) / p_gn}
-    for k in watched:
-        errs[f"grad {k}"] = rel_err(grads[k], p_grads[k])
-        errs[f"grad_of_max {k}"] = (
-            (grads[k] - p_grads[k]).abs().max()
-            / p_grads[k].abs().max()).item()
-    print(f"step vs plain step (tpu_fast, {path}, bf16, batch {B}): loss "
-          f"{loss:.6f} vs {p_loss:.6f}, grad_norm {gn:.6f} vs {p_gn:.6f}, "
-          f"acc {acc.tolist()}; errors {errs} (tolerances {STEP_TOL}: "
-          f"relative for loss and grad_norm, absolute for acc, relative to "
-          f"max(1, max |grad|) for grad and to max |grad| for grad_of_max)",
-          flush=True)
-    for k, e in errs.items():
-        check(math.isfinite(e) and e <= STEP_TOL[k.split()[0]],
-              f"step vs plain ({path}): {k} error {e}")
+    if compare:
+        (loss, acc, gn, grads), (p_loss, p_acc, p_gn, p_grads) = results
+        errs = {"loss": abs(loss - p_loss) / abs(p_loss),
+                "acc": (acc - p_acc).abs().max().item(),
+                "grad_norm": abs(gn - p_gn) / p_gn}
+        for k in watched:
+            errs[f"grad {k}"] = rel_err(grads[k], p_grads[k])
+            errs[f"grad_of_max {k}"] = (
+                (grads[k] - p_grads[k]).abs().max()
+                / p_grads[k].abs().max()).item()
+        print(f"step vs plain step ({config}, {path}, bf16, batch {B}): "
+              f"loss {loss:.6f} vs {p_loss:.6f}, grad_norm {gn:.6f} vs "
+              f"{p_gn:.6f}, acc {acc.tolist()}; errors {errs} (tolerances "
+              f"{tols}: relative for loss and grad_norm, absolute for acc, "
+              f"relative to max(1, max |grad|) for grad and to max |grad| "
+              f"for grad_of_max)", flush=True)
+        for k, e in errs.items():
+            check(math.isfinite(e) and e <= tols[k.split()[0]],
+                  f"step vs plain ({config}, {path}): {k} error {e}")
 
     def timed(fn, n):
         out = []
@@ -482,13 +591,14 @@ def step_vs_plain(card: str, path: str, watched_names) -> None:
 
     timed(lambda: steps.train_step(batch), 3)  # warm-up
     step_s = timed(lambda: steps.train_step(batch), 10)
-    plain_s = timed(plain_step, 3)
+    plain = f"{timed(plain_step, 3) * 1e3:.2f} ms" if compare \
+        else "not composed (no kernel on this path's attention)"
     audio = B * S / cfg.data.sample_rate
-    print(f"train step (tpu_fast, {path}, batch {B} x {S} samples = "
+    print(f"train step ({config}, {path}, batch {B} x {S} samples = "
           f"{audio:.2f} audio-s, device-resident batch) on {card}: "
           f"{step_s * 1e3:.2f} ms median of 10 = {audio / step_s:.1f} "
           f"audio-s/s; the plain step (forward and backward only, context) "
-          f"{plain_s * 1e3:.2f} ms", flush=True)
+          f"{plain}", flush=True)
 
 
 # ---------------------------------------------------------------- phase 8
@@ -613,6 +723,249 @@ def phase8_kernels(card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 11
+ATTN_FAST = (64, 128, 8, 32)    # (B, T, H, Dh) of transformer_fast
+ATTN_LONG = (16, 1024, 8, 32)   # the long-context run of phase 12
+ATTN_SHAPES = (ATTN_FAST, ATTN_LONG, (2, 200, 3, 16))
+ATTN_MODES = (("bf16 flash16", torch.bfloat16, "bfloat16"),
+              ("bf16 flash", torch.bfloat16, "float32"),
+              ("fp32 flash", torch.float32, "float32"))
+# o and the gradients relative to max(1, max |plain|): fp32 differs by
+# summation order (a gradient row sums up to 1 024 terms); with bf16 anywhere
+# the kernel rounds P and dS relative to a running max and the plain version
+# relative to the row's max, and a bf16 output rounds once more (2**-9).
+# lse is fp32 from exact products in every mode.
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LSE_TOL = 1e-4
+
+
+def attn_inputs(B, T, H, Dh, dtype, seed):
+    """Seeded q, k, v and a cotangent, (B, T, H, Dh), distinct per head."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, T, H, Dh))
+                             ).to("cuda", dtype) for _ in range(4)]
+
+
+def attn_work(B, T, H, Dh, products: int) -> float:
+    """Operations of `products` matrix products over the causal half of the
+    (T, T) scores: T (T + 1) / 2 positions a (batch, head)."""
+    return products * 2.0 * Dh * (T * (T + 1) // 2) * B * H
+
+
+def phase11_kernels(card: str) -> dict:
+    """The three attention kernels against their plain versions; returns
+    {name: {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}} at
+    transformer_fast's shape."""
+    names = ("flash_attention_forward", "flash_attention_dq",
+             "flash_attention_dkv")
+    errs = dict.fromkeys(names, 0.0)
+    with torch.inference_mode():
+        for n, shape in enumerate(ATTN_SHAPES):
+            for mode, dtype, p_dtype in ATTN_MODES:
+                q, k, v, do = attn_inputs(*shape, dtype, seed=50 + n)
+                scale = shape[3] ** -0.5
+                what = f"{shape} {mode}"
+                o, lse = flash_attention_forward(q, k, v, scale, p_dtype)
+                r_o, r_lse = flash_attention_forward_reference(q, k, v, scale,
+                                                               p_dtype)
+                dres = row_dot(do, r_o)
+                args = (q, k, v, do, r_lse, dres, scale, p_dtype)
+                dq = flash_attention_dq(*args)
+                dk, dv = flash_attention_dkv(*args)
+                dq2 = flash_attention_dq(*args)
+                dk2, dv2 = flash_attention_dkv(*args)
+                r_dq = flash_attention_dq_reference(*args)
+                r_dk, r_dv = flash_attention_dkv_reference(*args)
+                torch.cuda.synchronize()
+                lse_err = (lse - r_lse).abs().max().item()
+                check(lse_err <= LSE_TOL, f"{what}: lse error {lse_err}")
+                check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                      and torch.equal(dv, dv2),
+                      f"{what}: the backward differs between two runs")
+                tol = ATTN_TOL[dtype]
+                line = [f"lse max abs err {lse_err:.3e} (tol {LSE_TOL:.0e})"]
+                for name, out, a, b in (
+                        (names[0], "o", o, r_o), (names[1], "dq", dq, r_dq),
+                        (names[2], "dk", dk, r_dk),
+                        (names[2], "dv", dv, r_dv)):
+                    check(a.dtype == b.dtype == dtype and a.shape == b.shape
+                          and a.is_contiguous(),
+                          f"{what} {out}: {a.dtype} {tuple(a.shape)}")
+                    check(bool(torch.isfinite(a.float()).all()),
+                          f"{what} {out}: non-finite")
+                    abs_err = (a.float() - b.float()).abs().max().item()
+                    err = rel_err(a, b)
+                    errs[name] = max(errs[name], abs_err)
+                    line.append(f"{out} max abs err {abs_err:.3e}, relative "
+                                f"to max(1, max |plain|) {err:.3e}")
+                    check(err <= tol, f"{what} {out} error {err} > {tol}")
+                print(f"flash attention vs plain {what}: {'; '.join(line)} "
+                      f"(tol {tol:.0e}); backward bit-identical over two "
+                      f"runs", flush=True)
+
+    out = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # every call here runs for microseconds: the card's time comes from the
+    # replay of a CUDA graph of 20 calls, the eager call's (what a training
+    # step sees, with the host's enqueue) is printed beside it
+    on_card = dict(reps=10, inner=20, graph=True)
+    eager = dict(reps=10, inner=20)
+    for shape in (ATTN_LONG, ATTN_FAST):  # the main path's shape last: kept
+        B, T, H, Dh = shape
+        q, k, v, do = attn_inputs(*shape, torch.bfloat16, seed=50)
+        scale = Dh ** -0.5
+        with torch.inference_mode():
+            o, lse = flash_attention_forward_reference(q, k, v, scale,
+                                                       "bfloat16")
+            dres = row_dot(do, o)
+            args = (q, k, v, do, lse, dres, scale, "bfloat16")
+            dq = flash_attention_dq(*args)
+            dk, dv = flash_attention_dkv(*args)
+            calls = {
+                names[0]: (lambda: flash_attention_forward(
+                    q, k, v, scale, "bfloat16"),
+                    lambda: flash_attention_forward_reference(
+                        q, k, v, scale, "bfloat16"),
+                    bound([q, k, v, o, lse], attn_work(*shape, 2))),
+                names[1]: (lambda: flash_attention_dq(*args),
+                           lambda: flash_attention_dq_reference(*args),
+                           bound([q, k, v, do, lse, dres, dq],
+                                 attn_work(*shape, 3))),
+                names[2]: (lambda: flash_attention_dkv(*args),
+                           lambda: flash_attention_dkv_reference(*args),
+                           bound([q, k, v, do, lse, dres, dk, dv],
+                                 attn_work(*shape, 4)))}
+            out = {name: {"ms": cuda_ms(kernel, **on_card),
+                          "eager_ms": cuda_ms(kernel, **eager),
+                          "plain_ms": cuda_ms(plain, reps=5), **bnd}
+                   for name, (kernel, plain, bnd) in calls.items()}
+            simt = (q, k, v, do, lse, dres, scale, "float32")
+            fwd_ms = cuda_ms(lambda: flash_attention_forward(
+                q, k, v, scale, "float32"), **on_card)
+            dq_ms = cuda_ms(lambda: flash_attention_dq(*simt), **on_card)
+            dkv_ms = cuda_ms(lambda: flash_attention_dkv(*simt), **on_card)
+        print(f"time at {shape}, bf16 flash (fp32 P: its products on the "
+              f"SIMT pipe), on {card}: forward {fwd_ms:.4f} ms, dq "
+              f"{dq_ms:.4f} ms, dkv {dkv_ms:.4f} ms", flush=True)
+        # the library yardstick, used nowhere in the port: one fused call
+        # for the forward; its backward returns dq, dk and dv together (so
+        # the same time stands beside both backward kernels) and is timed
+        # as forward + backward less the forward
+        lq, lk, lv = (a.transpose(1, 2).detach().requires_grad_()
+                      for a in (q, k, v))
+        lg = do.transpose(1, 2)
+
+        def library_step():
+            lo = sdpa(lq, lk, lv, is_causal=True)
+            torch.autograd.grad(lo, (lq, lk, lv), lg)
+
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: sdpa(lq, lk, lv, is_causal=True),
+                              **on_card)
+        lib_bwd = cuda_ms(library_step, **on_card) - lib_fwd
+        check(lib_bwd > 0, f"library backward time {lib_bwd}")
+        for name, m in out.items():
+            m["library_ms"] = lib_fwd if name == names[0] else lib_bwd
+            m["max_abs_err"] = errs[name]
+            half = "forward" if name == names[0] \
+                else "backward (dq, dk and dv together)"
+            print(f"time {name} at {shape}, bf16 flash16, on {card}: kernel "
+                  f"{m['ms']:.4f} ms ({m.pop('eager_ms'):.4f} ms a call "
+                  f"enqueued eagerly), plain {m['plain_ms']:.4f} ms, bound "
+                  f"{m['bound_ms']:.4f} ms by {m['bound_by']}, "
+                  f"scaled_dot_product_attention {half} "
+                  f"{m['library_ms']:.4f} ms (yardstick only)", flush=True)
+    return out
+
+
+# --------------------------------------------------------------- phase 12
+LONG_SAMPLES, LONG_BATCH, LONG_STEPS = 163840, 16, 5
+
+
+def transformer_slice(card: str) -> dict:
+    """transformer_fast through the training CLI under each attn_impl and
+    at the long context, then through `extract_features`; returns the launch
+    counts of the `flash16` run."""
+    layers = presets.transformer_fast().model.ar.num_layers
+    on_path = {k: 1 for k in HEADS_KERNELS}
+    counts = None
+    for impl in ("flash16", "flash", "xla"):
+        extra = [] if impl == "xla" else ["--set",
+                                          f"model.ar.attn_impl={impl}"]
+        per_step = dict(on_path)
+        if impl != "xla":  # no attention kernel may launch under xla
+            per_step.update({k: layers for k in ATTN_KERNELS})
+        run = train_cli_run(f"attn_impl={impl}", "transformer_fast", extra,
+                            TRAIN_STEPS, per_step)
+        counts = counts or run
+    with tempfile.TemporaryDirectory() as corpus:
+        # the CLI's own synthetic files hold 4 s, a long snippet 10.24 s
+        generate_synthetic_corpus(corpus, num_speakers=LONG_BATCH,
+                                  files_per_speaker=2, seconds_per_file=12.0,
+                                  seed=0)
+        train_cli_run(
+            f"long context, T = {LONG_SAMPLES // 160}", "transformer_fast",
+            ["--data", corpus, "--snippet-samples", str(LONG_SAMPLES),
+             "--batch-size", str(LONG_BATCH), "--set",
+             "model.ar.attn_impl=flash16"], LONG_STEPS,
+            {**on_path, **{k: layers for k in ATTN_KERNELS}})
+
+    cfg = apply_overrides(presets.transformer_fast(),
+                          ["model.ar.attn_impl=flash16"])
+    model = CPCModel(cfg.model, device="cuda",
+                     generator=torch.Generator().manual_seed(0)).eval()
+    window, bw, n_batches = cfg.data.snippet_samples, cfg.data.batch_size, 4
+    n_samples = n_batches * bw * window
+    wave = (np.random.default_rng(1).standard_normal(n_samples) * 0.1
+            ).astype(np.float32)
+
+    def extract():
+        return extract_features(model, wave, window=window, batch_windows=bw,
+                                normalize=cfg.data.normalize)
+
+    for fn in COUNTED.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    z, c = extract()
+    first_s = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in COUNTED.items() if fn.launches}
+    want = {"flash_attention_forward": n_batches * layers}
+    print(f"transformer extraction: launches {got} (expected {want})",
+          flush=True)
+    check(got == want, f"extraction launched {got}")
+    N = n_samples // cfg.model.encoder.total_downsample
+    check(z.shape == (N, cfg.model.encoder.d_enc)
+          and c.shape == (N, cfg.model.ar.d_ar), f"{z.shape} {c.shape}")
+    check(bool(np.isfinite(z).all() and np.isfinite(c).all()),
+          "non-finite features")
+    with torch.inference_mode():
+        x0 = torch.from_numpy(wave[:bw * window].reshape(bw, window))
+        z0 = model.encode(prepare_waveform(x0.cuda(), cfg.data.normalize))
+        c_plain = plain_context(model.gar, z0).float().cpu().numpy()
+    c_plain = c_plain.reshape(-1, cfg.model.ar.d_ar)
+    c_err = float(np.abs(c[:len(c_plain)] - c_plain).max())
+    # c is bf16 after the final LayerNorm, entries to about 4, where a bf16
+    # ulp is 2**-6 = 0.016: P's rounding (see TRANSFORMER_STEP_TOL) moves an
+    # entry by up to three of them (4.7e-2 measured)
+    c_tol = 1e-1
+    print(f"transformer extraction: c vs plain attention max abs err "
+          f"{c_err:.3e} (tol {c_tol:.0e}), max |c| "
+          f"{float(np.abs(c_plain).max()):.2f}", flush=True)
+    check(c_err <= c_tol, f"transformer c error {c_err}")
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        extract()
+        runs.append(time.perf_counter() - t0)
+    audio_s = n_samples / cfg.data.sample_rate
+    steady = statistics.median(runs)
+    print(f"transformer extraction: {audio_s:.2f} audio-s of "
+          f"transformer_fast (flash16, batch {bw}, bf16) on {card}: first "
+          f"run {first_s:.3f} s, steady {steady:.3f} s (median of "
+          f"{len(runs)}) = {audio_s / steady:.1f} audio-s/s", flush=True)
+    return counts
+
+
 def main() -> None:
     # 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false; "
@@ -728,6 +1081,17 @@ def main() -> None:
     for path in ("all_steps", "fuse_heads=false"):
         step_vs_plain(card, path, ("prediction_heads.weight", last_encoder))
 
+    # 11-13. the transformer gar and its attention kernels
+    measured.update(phase11_kernels(card))
+    run = transformer_slice(card)
+    counts.update({name: run[name] for name in ATTN_KERNELS})
+    watched = ("gar.block0.attn.query.weight", "gar.in_proj.weight")
+    for impl in ("flash16", "flash"):
+        step_vs_plain(card, f"attn_impl={impl}", watched, "transformer_fast",
+                      [f"model.ar.attn_impl={impl}"], TRANSFORMER_STEP_TOL)
+    step_vs_plain(card, "attn_impl=xla", watched, "transformer_fast", [],
+                  compare=False)
+
     sources = {
         "gru_scan": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:57"),
         "gru_scan_backward": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:82"),
@@ -743,7 +1107,13 @@ def main() -> None:
                                  "cpc_tpu/ops/infonce_allsteps_pallas.py:55"),
         "allsteps_nll_backward": (
             "infonce_allsteps.cu",
-            "cpc_tpu/ops/infonce_allsteps_pallas.py:100")}
+            "cpc_tpu/ops/infonce_allsteps_pallas.py:100"),
+        "flash_attention_forward": ("flash_attention.cu",
+                                    "cpc_tpu/ops/attention_pallas.py:65"),
+        "flash_attention_dq": ("flash_attention.cu",
+                               "cpc_tpu/ops/attention_pallas.py:118"),
+        "flash_attention_dkv": ("flash_attention.cu",
+                                "cpc_tpu/ops/attention_pallas.py:148")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{

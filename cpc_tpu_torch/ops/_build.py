@@ -113,6 +113,8 @@ def load_library() -> ctypes.CDLL:
     function's signature declared."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    operand = [ptr, i64, i64, i64]  # a tensor and three of its strides
+    attn_tail = [i32] * 4 + [ctypes.c_float] + [i32] * 3 + [ptr]
     signatures = {
         "gru_scan_fwd": [ptr] * 5 + [i32] * 5 + [ptr],
         "gru_scan_bwd": [ptr] * 14 + [i32] * 6 + [ptr],
@@ -127,6 +129,9 @@ def load_library() -> ctypes.CDLL:
         "allsteps_nll_bwd": [ptr] * 6 + [i32] * 6 + [i64] * 2 + [i32] * 2
         + [ptr],
         "gru_scan_max_hidden": [],
+        "flash_attn_fwd": operand * 3 + [ptr] * 2 + attn_tail,
+        "flash_attn_dq": operand * 4 + [ptr] * 3 + attn_tail,
+        "flash_attn_dkv": operand * 4 + [ptr] * 4 + attn_tail,
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

@@ -3,9 +3,13 @@
     python -m cpc_tpu_torch.train --config tpu_fast --data synthetic \
         --steps N --workdir W [--device cuda]
 
-Port of `cpc_tpu/train/cli.py`, single device. The config is `--config`,
-else (with `--resume`) the workdir's `config.json`, else `baseline`; the
-dedicated flags override it, and `--set path=value` overrides last.
+Port of `cpc_tpu/train/cli.py`, single device. Any preset of the conv1d
+encoder trains: the GRU family (`baseline`, `tpu_fast`, ...) and the
+transformer family (`transformer_gar`, `transformer_fast`), whose attention
+is chosen with `--set model.ar.attn_impl=xla|flash|flash16`. The config is
+`--config`, else (with `--resume`) the workdir's `config.json`, else
+`baseline`; the dedicated flags override it, and `--set path=value`
+overrides last.
 `--data synthetic` (or `synthetic-music`) writes a seeded corpus under the
 workdir on first use, as the JAX CLI does. `--device` defaults to cuda and
 raises where there is no GPU. Not offered yet (ROADMAP.md §A9): --packed,

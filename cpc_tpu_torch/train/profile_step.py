@@ -3,17 +3,18 @@
     python -m cpc_tpu_torch.train.profile_step [--config tpu_fast]
         [--set PATH=VAL ...] [--steps 5] [--table FILE]
 
-Builds the step of `--config` (with the `--set` overrides, as the training
-CLI takes them: `--set model.loss.negatives=all_steps` profiles the
-all-steps loss path) at full width with random weights (seed 0)
-and one seeded int16 batch, as `chip_smoke.py` phase 7 does, with the
-trainer's own backend settings. It prints the card's name and power limit,
-then:
+Builds the step of `--config` (`tpu_fast`, `transformer_fast`, ...; with
+the `--set` overrides, as the training CLI takes them: `--set
+model.loss.negatives=all_steps` profiles the all-steps loss path, `--set
+model.ar.attn_impl=flash16` the attention kernels) at full width with
+random weights (seed 0) and one seeded int16 batch, as `chip_smoke.py`
+phase 7 does, with the trainer's own backend settings. It prints the
+card's name and power limit, then:
 
 - the step time (median, min, max of 10, host clock with a CUDA sync)
   with the batch resident on the device and with it copied from the host
   each step through `to_device`, as the trainer does;
-- CUDA-event times of the encoder forward, the GRU forward, the loss
+- CUDA-event times of the encoder forward, the gar forward, the loss
   forward and backward and the whole step; the optimizer is the step less
   the forward and backward;
 - a `torch.profiler` trace of `--steps` steps: wall time, device kernel
@@ -51,9 +52,14 @@ STAGES = (
     ("all-steps InfoNCE forward kernel", ("allsteps_fwd",)),
     ("all-steps InfoNCE backward dP kernel", ("allsteps_dp",)),
     ("all-steps InfoNCE backward dZ kernel", ("allsteps_dz",)),
+    ("flash attention forward kernel", ("flash_fwd",)),
+    ("flash attention backward dQ kernel", ("flash_dq",)),
+    ("flash attention backward dK/dV kernel", ("flash_dkv",)),
+    ("transformer (LayerNorm, MLP activation, softmax of the xla path)",
+     ("layer_norm", "layernorm", "gammabeta", "gelu", "softmax")),
     ("conv encoder (cuDNN, with its layout transposes)",
      ("conv", "fprop", "dgrad", "wgrad", "nchw", "nhwc", "cudnn")),
-    ("matmuls (cuBLAS): heads product, folds, GRU projections",
+    ("matmuls (cuBLAS): heads product, folds, gar projections and MLP",
      ("gemm", "cublas", "nvjet")),
 )
 OTHER = "the rest: optimizer, elementwise, casts, reductions"
@@ -143,7 +149,7 @@ def main(argv=None) -> int:
     with torch.no_grad():
         enc_ms = _event_ms(lambda: model.encoder(x))
         z = model.encoder(x)
-        gar_ms = _event_ms(lambda: model.gar(z, time_major_out=True))
+        gar_ms = _event_ms(lambda: model.gar(z))
 
     def fwd_bwd():
         model.zero_grad(set_to_none=True)
@@ -152,7 +158,7 @@ def main(argv=None) -> int:
     fb_ms = _event_ms(fwd_bwd)
     step_ms = _event_ms(lambda: steps.train_step(dev))
     print(f"CUDA events, medians of 10: encoder forward {enc_ms:.2f} ms, "
-          f"GRU forward (projection + kernel) {gar_ms:.2f} ms, loss forward "
+          f"gar forward ({cfg.model.ar.kind}) {gar_ms:.2f} ms, loss forward "
           f"+ backward {fb_ms:.2f} ms, step {step_ms:.2f} ms, optimizer "
           f"(step less forward + backward) {step_ms - fb_ms:.2f} ms",
           flush=True)

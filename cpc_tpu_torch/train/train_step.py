@@ -1,10 +1,10 @@
 """The training and evaluation step, on one device.
 
 Port of `cpc_tpu/train/train_step.py`: int16 dequantization and
-normalization (`data.loader.device_prepare`), encoder, GRU, prediction heads,
-InfoNCE, backward, then Adam. PyTorch runs eagerly, so the step is a plain
-function; the parameters are updated in place, where the JAX step returns
-new ones.
+normalization (`data.loader.device_prepare`), encoder, gar (GRU or causal
+transformer), prediction heads, InfoNCE, backward, then Adam. PyTorch runs
+eagerly, so the step is a plain function; the parameters are updated in
+place, where the JAX step returns new ones.
 
 `make_optimizer` is optax's chain written out in tensor code, with optax's
 numerics (tests/test_torch_port_optim.py holds it against optax):
@@ -17,6 +17,12 @@ numerics (tests/test_torch_port_optim.py holds it against optax):
     warmup the first update uses lr 0: optax's `linear_schedule` warmup for
     'constant', `warmup_cosine_decay_schedule` with decay_steps =
     max(num_steps, warmup + 1) for 'cosine'.
+
+Transformer dropout (`ar.dropout > 0`) draws from a `torch.Generator` made
+anew for every microbatch of every step and seeded from `train.seed` and
+the optimizer's step count (`dropout_generator`), as the JAX trainer folds
+the step into its key. The count is part of the checkpoint, so a resumed
+run draws what the straight run draws. Evaluation never drops.
 
 Single device only: a mesh, data or context parallelism, `device_corpus` and
 `augment` raise, naming their ROADMAP.md items.
@@ -155,6 +161,14 @@ def init_state(cfg: CPCConfig, device=None) -> CPCModel:
                     generator=torch.Generator().manual_seed(cfg.train.seed))
 
 
+def dropout_generator(seed: int, count: int, microbatch: int,
+                      device) -> torch.Generator:
+    """The dropout draws of microbatch `microbatch` of optimizer step
+    `count`: a function of (train.seed, count, microbatch) alone."""
+    mixed = (seed * 0x9E3779B97F4A7C15 + count * 1_000_003 + microbatch)
+    return torch.Generator(device=device).manual_seed(mixed % (1 << 63))
+
+
 def make_step_fns(cfg: CPCConfig, model: CPCModel) -> StepFns:
     check_supported(cfg)
     opt = make_optimizer(cfg, model)
@@ -163,17 +177,21 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel) -> StepFns:
     fuse_heads = resolve_fuse_heads(cfg)
     accum = cfg.train.accum_steps
     params = dict(model.named_parameters())
+    dropout = cfg.model.ar.kind == "transformer" and cfg.model.ar.dropout > 0
 
-    def loss_fn(model: CPCModel, batch: torch.Tensor):
+    def loss_fn(model: CPCModel, batch: torch.Tensor, generator=None):
+        """(loss, metrics). With a `generator` (and ar.dropout > 0) the
+        transformer's dropout is live and draws from it."""
         x = device_prepare(batch, normalize=normalize)
+        train = dropout and generator is not None
         if fuse_heads:
-            z, c_tm = model.latents_tm(x)
+            z, c_tm = model.latents_tm(x, train, generator)
             W = model.prediction_heads.weight.t()  # (d_ar, K*d_enc)
             kdtype = torch.bfloat16 if loss_cfg.pallas_bf16 else torch.float32
             return fused_heads_infonce(
                 c_tm, z, W, num_steps=loss_cfg.prediction_steps,
                 compute_dtype=kdtype, c_time_major=True)
-        out = model(x)
+        out = model(x, train, generator)
         return infonce_loss_and_metrics(
             out.preds, out.z, negatives=loss_cfg.negatives,
             use_pallas=loss_cfg.use_pallas,
@@ -190,8 +208,11 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel) -> StepFns:
         for p in params.values():
             p.grad = None
         per_mb = []
-        for mb in batch.reshape(accum, B // accum, *batch.shape[1:]):
-            loss, metrics = loss_fn(model, mb)
+        mbs = batch.reshape(accum, B // accum, *batch.shape[1:])
+        for i, mb in enumerate(mbs):
+            gen = dropout_generator(cfg.train.seed, opt.count, i,
+                                    batch.device) if dropout else None
+            loss, metrics = loss_fn(model, mb, gen)
             loss.backward()
             per_mb.append({k: v.detach() for k, v in metrics.items()})
         grads = {k: p.grad for k, p in params.items()}

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card, each against its plain version on
 the same CUDA tensors: the GRU recurrence forward and backward, the fused
 heads + InfoNCE forward and backward, and the same-step and all-steps
-InfoNCE on materialized predictions, forward and backward; then the
-extraction slice and a training step of each loss path on the card against
-the same on the CPU.
+InfoNCE on materialized predictions, forward and backward, and the causal
+flash attention forward, dQ and dK/dV; then the extraction slice and a
+training step of each loss path and of the transformer gar on the card
+against the same on the CPU.
 
 Every test here is marked `cuda` and skips without a GPU. The file imports
 no jax, so it also runs where jax is not installed, without the suite's
@@ -19,6 +20,11 @@ import torch
 from cpc_tpu_torch import CPCModel, extract_features, presets
 from cpc_tpu_torch.config import (ArConfig, EncoderConfig, LossConfig,
                                   ModelConfig, apply_overrides)
+from cpc_tpu_torch.ops.attention_cuda import (
+    flash_attention_dkv, flash_attention_dkv_reference, flash_attention_dq,
+    flash_attention_dq_reference, flash_attention_forward,
+    flash_attention_forward_reference, flash_causal_mha,
+    flash_causal_mha_backward_reference, row_dot)
 from cpc_tpu_torch.ops.gru_cuda import (gru_scan, gru_scan_backward,
                                         gru_scan_backward_reference,
                                         gru_scan_reference)
@@ -293,3 +299,135 @@ def test_slice_on_card_matches_cpu():
     assert gru_scan.launches == before + 2 * 2  # batches x layers
     np.testing.assert_allclose(zc, z, rtol=0, atol=1e-4)
     np.testing.assert_allclose(cc, c, rtol=0, atol=1e-4)
+
+
+# (B, T, H, Dh): transformer_fast; ragged T on the mma kernels (Dh 16, 64);
+# Dh without an mma kernel; two 64-wide chunks of Dh; a long sweep
+ATTN_SHAPES = [(64, 128, 8, 32), (2, 200, 3, 16), (1, 300, 2, 64),
+               (2, 70, 3, 24), (1, 130, 2, 128), (2, 1024, 4, 32), (1, 1, 1, 8)]
+ATTN_MODES = {"bf16_flash16": (torch.bfloat16, "bfloat16"),
+              "bf16_flash": (torch.bfloat16, "float32"),
+              "fp32_flash": (torch.float32, "float32"),
+              "fp32_flash16": (torch.float32, "bfloat16")}
+ATTN_KERNELS = (flash_attention_forward, flash_attention_dq,
+                flash_attention_dkv)
+
+
+def _attn_inputs(B, T, H, Dh, dtype, seed=0):
+    """q, k, v and a cotangent, (B, T, H, Dh), distinct per head and row."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, T, H, Dh))
+                             ).to("cuda", dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("mode", sorted(ATTN_MODES))
+@pytest.mark.parametrize("B,T,H,Dh", ATTN_SHAPES)
+def test_attention_kernels_match_plain(B, T, H, Dh, mode):
+    dtype, p_dtype = ATTN_MODES[mode]
+    q, k, v, do = _attn_inputs(B, T, H, Dh, dtype)
+    scale = Dh ** -0.5
+    before = [fn.launches for fn in ATTN_KERNELS]
+    o, lse = flash_attention_forward(q, k, v, scale, p_dtype)
+    r_o, r_lse = flash_attention_forward_reference(q, k, v, scale, p_dtype)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape and o.is_contiguous()
+    assert lse.shape == (B, H, T) and lse.dtype == torch.float32
+    # a bf16 P is rounded relative to the running max in the kernel and to
+    # the row's max in the plain version, and a bf16 output rounds once more
+    tol = 1e-2 if dtype == torch.bfloat16 \
+        or p_dtype == "bfloat16" else 1e-5
+    assert (lse - r_lse).abs().max().item() <= 1e-4
+    assert _rel(o, r_o) <= tol
+    dres = row_dot(do, r_o)
+    args = (q, k, v, do, r_lse, dres, scale, p_dtype)
+    dq = flash_attention_dq(*args)
+    dk, dv = flash_attention_dkv(*args)
+    r_dq = flash_attention_dq_reference(*args)
+    r_dk, r_dv = flash_attention_dkv_reference(*args)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in ATTN_KERNELS] == [n + 1 for n in before]
+    for a, b in ((dq, r_dq), (dk, r_dk), (dv, r_dv)):
+        assert a.dtype == dtype and a.shape == q.shape and a.is_contiguous()
+        assert bool(torch.isfinite(a.float()).all())
+        assert _rel(a, b) <= tol
+    # the same result every run: no sum crosses blocks
+    assert torch.equal(dq, flash_attention_dq(*args))
+    dk2, dv2 = flash_attention_dkv(*args)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("mode", ["bf16_flash16", "fp32_flash"])
+def test_attention_kernels_read_strided_heads(mode):
+    dtype, p_dtype = ATTN_MODES[mode]
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.standard_normal((3, 150, 3, 4, 32))
+                           ).to("cuda", dtype)
+    q, k, v = qkv.unbind(2)  # slices of one fused projection
+    assert not q.is_contiguous()
+    o, lse = flash_attention_forward(q, k, v, 0.2, p_dtype)
+    r_o, r_lse = flash_attention_forward_reference(q, k, v, 0.2, p_dtype)
+    assert (lse - r_lse).abs().max().item() <= 1e-4
+    assert _rel(o, r_o) <= REL[dtype]
+
+
+def test_attention_kernels_reject_what_they_do_not_take():
+    q, k, v, do = _attn_inputs(2, 10, 3, 8, torch.float32)
+    with pytest.raises(TypeError):
+        flash_attention_forward(q.half(), k.half(), v.half(), 1.0)
+    with pytest.raises(ValueError, match="last axis"):
+        flash_attention_forward(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, v, 1.0)
+    with pytest.raises(ValueError, match="Dh <="):
+        wide = torch.zeros((1, 4, 1, 129), device="cuda")
+        flash_attention_forward(wide, wide, wide, 1.0)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_dq(q, k, v, do, torch.zeros((2, 3, 9), device="cuda"),
+                           torch.zeros((2, 3, 10), device="cuda"), 1.0)
+
+
+@pytest.mark.parametrize("mode", sorted(ATTN_MODES))
+def test_gradient_through_the_attention_kernels_matches_plain(mode):
+    dtype, p_dtype = ATTN_MODES[mode]
+    q, k, v, do = _attn_inputs(2, 90, 3, 32, dtype, seed=2)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    o = flash_causal_mha(*leaves, p_dtype=p_dtype)
+    o.backward(do)
+    r_o, r_lse = flash_attention_forward_reference(q, k, v, 32 ** -0.5,
+                                                   p_dtype)
+    want = flash_causal_mha_backward_reference(q, k, v, r_o, r_lse, do,
+                                               p_dtype=p_dtype)
+    tol = 1e-5 if mode == "fp32_flash" else 1e-2
+    for leaf, w in zip(leaves, want):
+        assert _rel(leaf.grad, w) <= tol
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash", "flash16"])
+def test_transformer_train_step_on_card_matches_cpu(impl):
+    cfg = apply_overrides(presets.transformer_gar(), [
+        "model.encoder.channels=16,16,16,16,16", "model.encoder.d_enc=16",
+        "model.ar.d_ar=32", "model.ar.num_heads=2",
+        "model.loss.prediction_steps=3", "model.loss.use_pallas=true",
+        "model.loss.fuse_heads=true", "data.batch_size=4",
+        "data.snippet_samples=12800", f"model.ar.attn_impl={impl}"])
+    batch = torch.from_numpy(np.clip(np.random.default_rng(0).standard_normal(
+        (4, 12800)) * 5000, -32768, 32767).astype(np.int16))
+    metrics, models = [], []
+    before = [fn.launches for fn in ATTN_KERNELS]
+    for device in ("cpu", "cuda"):
+        model = init_state(cfg, device)
+        steps = make_step_fns(cfg, model)
+        metrics.append([steps.train_step(batch.to(device)) for _ in range(2)])
+        models.append(model)
+    per_kernel = 0 if impl == "xla" else 2 * cfg.model.ar.num_layers
+    assert [fn.launches for fn in ATTN_KERNELS] == \
+        [n + per_kernel for n in before]
+    # fp32 model; under flash16 the bf16 P is rounded relative to the
+    # running max on the card and to the row's max on the CPU
+    rtol, atol = (1e-4, 1e-5) if impl != "flash16" else (2e-3, 1e-4)
+    for m_cpu, m_gpu in zip(*metrics):
+        for k in ("loss", "grad_norm", "acc"):
+            torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=rtol,
+                                       atol=atol)
+    for (k, a), b in zip(models[0].state_dict().items(),
+                         models[1].state_dict().values()):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=atol, msg=k)

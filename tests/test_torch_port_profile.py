@@ -27,6 +27,18 @@ from cpc_tpu_torch.train.profile_step import OTHER, main, stage_of
     ("void allsteps_dp_kernel<__nv_bfloat16>(...)",
      "all-steps InfoNCE backward dP"),
     ("void allsteps_dz_kernel<float>(...)", "all-steps InfoNCE backward dZ"),
+    ("void flash_fwd_mma_kernel<32>(...)", "flash attention forward"),
+    ("void flash_fwd_kernel<float, false, 1>(...)", "flash attention forward"),
+    ("void flash_dq_mma_kernel<32>(...)", "flash attention backward dQ"),
+    ("void flash_dkv_kernel<__nv_bfloat16, false, 1>(...)",
+     "flash attention backward dK/dV"),
+    ("void at::native::vectorized_layer_norm_kernel<c10::BFloat16, float>",
+     "transformer"),
+    ("void at::native::GammaBetaBackwardCUDAKernel<float, float>",
+     "transformer"),
+    ("void at::native::vectorized_elementwise_kernel<4, "
+     "at::native::GeluCUDAKernelImpl(...)>", "transformer"),
+    ("void cunn_SoftMaxForward<8, c10::BFloat16, float, ...>", "transformer"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
      "conv encoder"),
     ("sm90_xmma_wgrad_implicit_gemm_indexed_bf16bf16", "conv encoder"),
