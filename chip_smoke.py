@@ -10,10 +10,16 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles cpc_tpu_torch/csrc/*.cu with nvcc for sm_90a;
 3. kernel vs plain: the CUDA `gru_scan` against `gru_scan_reference` on the
    same CUDA tensors, at the slice's shape (T, B, H) = (128, 64, 256) in
-   bf16 and fp32 and at a ragged (7, 3, 40); then both times at the
-   slice's shape in bf16 (median of CUDA-event-timed runs), with
-   torch.nn.GRU (cuDNN; it also does the input projection) as the library
-   yardstick;
+   bf16 and fp32 (the resident route: wh in the shared memory of a
+   thread-block cluster; checked), at a ragged (7, 3, 40) (the streamed
+   route), and at one more shape of each route ((5, 17, 256): a ragged last
+   tile of a cluster; (3, 5, 512): wider than a cluster), each run twice
+   for bit-identical results; then both times at the slice's shape in bf16
+   (median of CUDA-event-timed runs) and µs per step, with torch.nn.GRU
+   (cuDNN; it also does the input projection) as the library yardstick,
+   the resident kernel at 16 rows a cluster, the streamed kernel at the
+   same shape, and the exchange and cluster barrier alone (the serial
+   floor);
 4. the extraction slice: `extract_features` of a `tpu_fast` CPCModel (full
    width, random weights from a seed) over 4 batches of 64 windows of
    seeded synthetic audio; checks shapes, finiteness, the kernel's launch
@@ -23,9 +29,12 @@ Phases, in order; any failure exits non-zero:
    tensors: the GRU backward at the slice's (128, 64, 256) and at
    (7, 3, 40), the fused heads + InfoNCE forward and backward at the
    slice's (T, B, C, K, D) = (128, 64, 64, 12, 512) and at (20, 3, 6, 3, 40)
-   with shift 3, each in bf16 and fp32; then kernel and plain times at the
-   slice's shape in bf16, with torch.nn.GRU's backward (cuDNN) beside the
-   GRU backward as a yardstick only;
+   with shift 3, each in bf16 and fp32 (the GRU backward also at phase 3's
+   two extra shapes, and twice for bit-identical results); then kernel and
+   plain times at the slice's shape in bf16, with torch.nn.GRU's backward
+   (cuDNN) beside the GRU backward as a yardstick only, and the GRU
+   backward's three stages apart (gates of all steps, reversed recurrence,
+   dwh/dbh reduction; from torch.profiler);
 6. the training slice through its entry point:
    `cpc_tpu_torch.train.cli.main` trains `tpu_fast` at full width on the
    synthetic corpus for 10 steps; checks that metrics.jsonl is finite, that
@@ -106,7 +115,7 @@ from cpc_tpu_torch import CPCModel, extract_features, presets
 from cpc_tpu_torch.config import apply_overrides
 from cpc_tpu_torch.data.loader import device_prepare
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
-from cpc_tpu_torch.ops import _build
+from cpc_tpu_torch.ops import _build, gru_cuda
 from cpc_tpu_torch.ops.attention_cuda import (
     _FlashPlain, flash_attention_dkv, flash_attention_dkv_reference,
     flash_attention_dq, flash_attention_dq_reference, flash_attention_forward,
@@ -115,8 +124,9 @@ from cpc_tpu_torch.ops.conv_cuda import (_ConvPyramidPlain, conv_chain,
                                          conv_pyramid_forward,
                                          conv_pyramid_reference)
 from cpc_tpu_torch.ops.dsp import prepare_waveform
-from cpc_tpu_torch.ops.gru_cuda import (_GruScanPlain, gru_scan,
-                                        gru_scan_backward,
+from cpc_tpu_torch.ops.gru_cuda import (_GruScanPlain,
+                                        cluster_exchange_probe, gru_route,
+                                        gru_scan, gru_scan_backward,
                                         gru_scan_backward_reference,
                                         gru_scan_reference)
 from cpc_tpu_torch.ops.infonce_allsteps_cuda import (
@@ -144,6 +154,12 @@ TOL = {torch.float32: 1e-4,   # fp32 with TF32 off: summation order only
 SLICE_SHAPE = (128, 64, 256)  # (T, B, H) of tpu_fast
 CASES = [(SLICE_SHAPE, torch.bfloat16), (SLICE_SHAPE, torch.float32),
          ((7, 3, 40), torch.float32), ((7, 3, 40), torch.bfloat16)]
+# one more shape of each route: a ragged last tile of a cluster's rows, and
+# a width beyond a cluster (its slice of wh does not fit a block)
+ROUTE_CASES = [((5, 17, 256), torch.bfloat16), ((5, 17, 256), torch.float32),
+               ((3, 5, 512), torch.bfloat16), ((3, 5, 512), torch.float32)]
+ROUTES = {(128, 64, 256): "resident", (5, 17, 256): "resident",
+          (7, 3, 40): "streamed", (3, 5, 512): "streamed"}
 
 
 def gru_inputs(T, B, H, dtype, seed):
@@ -220,6 +236,85 @@ def bound(tensors, flops: float, dtype=torch.bfloat16) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+# ---------------------------------------------------------------- phase 3
+class forced:
+    """Sets a constant of `gru_cuda` for the time of a `with` block: the
+    other rows a cluster, or no width on the resident route (so that the
+    slice's shape runs the streamed kernels), for a time beside the one the
+    port runs."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.kept = getattr(gru_cuda, self.name)
+        setattr(gru_cuda, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(gru_cuda, self.name, self.kept)
+
+
+def phase3_gru(card: str) -> dict:
+    """`gru_scan` against its plain version on both routes, then its times;
+    returns {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}."""
+    for dtype in TOL:
+        T, B, H = SLICE_SHAPE
+        check(gru_route(B, H, dtype) == "resident",
+              f"{SLICE_SHAPE} {dtype} takes the {gru_route(B, H, dtype)} "
+              f"route")
+    max_err = 0.0
+    with torch.inference_mode():
+        for n, ((T, B, H), dtype) in enumerate(CASES + ROUTE_CASES):
+            route = gru_route(B, H, dtype)
+            check(route == ROUTES[(T, B, H)], f"{(T, B, H)} takes {route}")
+            args = gru_inputs(T, B, H, dtype, seed=n)
+            out = gru_scan(*args)
+            again = gru_scan(*args)
+            ref = gru_scan_reference(*args)
+            torch.cuda.synchronize()
+            check(out.dtype == ref.dtype == dtype
+                  and tuple(out.shape) == (T, B, H), f"{out.shape} {out.dtype}")
+            check(bool(torch.isfinite(out.float()).all()), "non-finite hs")
+            check(torch.equal(out, again),
+                  f"gru_scan {(T, B, H)} differs between two runs")
+            err = (out.float() - ref.float()).abs().max().item()
+            max_err = max(max_err, err)
+            print(f"gru_scan vs plain {(T, B, H)} {str(dtype)[6:]} ({route} "
+                  f"route): max abs err {err:.3e} (tol {TOL[dtype]:.0e}); two "
+                  f"runs bit-identical", flush=True)
+            check(err <= TOL[dtype], f"gru_scan error {err} > {TOL[dtype]}")
+
+        T, B, H = SLICE_SHAPE
+        args = gru_inputs(T, B, H, torch.bfloat16, seed=0)
+        cudnn, x, h0 = cudnn_gru(T, B, H)
+        gru_fwd = {"max_abs_err": max_err,
+                   "ms": cuda_ms(lambda: gru_scan(*args)),
+                   "plain_ms": cuda_ms(lambda: gru_scan_reference(*args)),
+                   "library_ms": cuda_ms(lambda: cudnn(x, h0)),
+                   **bound([*args, gru_scan(*args)], 2 * T * B * H * 3 * H)}
+        other_rows = 24 - gru_cuda._TILE_ROWS  # 16 beside 8
+        with forced("_TILE_ROWS", other_rows):
+            rows_ms = cuda_ms(lambda: gru_scan(*args))
+        with forced("_RESIDENT_HIDDEN", ()):
+            streamed_ms = cuda_ms(lambda: gru_scan(*args))
+        probe_steps = 10 * T  # long enough to time without a CUDA graph
+        floor_ms = cuda_ms(lambda: cluster_exchange_probe(
+            probe_steps, H, "cuda")) * T / probe_steps
+        fp32 = gru_inputs(T, B, H, torch.float32, seed=1)
+        fp32_ms = cuda_ms(lambda: gru_scan(*fp32))
+    print(f"time {SLICE_SHAPE} bf16 on {card}: kernel {gru_fwd['ms']:.4f} "
+          f"ms = {gru_fwd['ms'] / T * 1e3:.3f} us a step "
+          f"({gru_cuda._TILE_ROWS} rows a cluster; {other_rows} rows "
+          f"{rows_ms:.4f} ms; fp32 {fp32_ms:.4f} ms), plain "
+          f"{gru_fwd['plain_ms']:.4f} ms, bound {gru_fwd['bound_ms']:.4f} ms "
+          f"by {gru_fwd['bound_by']}, torch.nn.GRU (cuDNN, yardstick only) "
+          f"{gru_fwd['library_ms']:.4f} ms; the streamed kernel at this shape "
+          f"{streamed_ms:.4f} ms; the exchange and cluster barrier of {T} "
+          f"steps alone (the serial floor) {floor_ms:.4f} ms = "
+          f"{floor_ms / T * 1e3:.3f} us a step", flush=True)
+    return gru_fwd
+
+
 # ---------------------------------------------------------------- phase 5
 # Tolerances, relative to max(1, max |plain|) of each output: fp32 differs
 # by summation order only; bf16 outputs by at most about one rounding of
@@ -261,19 +356,25 @@ def phase5_kernels(card: str) -> dict:
     errs = {"gru_scan_backward": 0.0, "heads_nll_forward": 0.0,
             "heads_nll_backward": 0.0}
     with torch.inference_mode():
-        for n, ((T, B, H), dtype) in enumerate(GRU_BWD_CASES):
+        for n, ((T, B, H), dtype) in enumerate(GRU_BWD_CASES + ROUTE_CASES):
+            route = gru_route(B, H, dtype)
+            check(route == ROUTES[(T, B, H)], f"{(T, B, H)} takes {route}")
             xp, wh, bh, h0 = gru_inputs(T, B, H, dtype, seed=10 + n)
             g = torch.from_numpy(np.random.default_rng(20 + n).standard_normal(
                 (T, B, H))).to("cuda", dtype)
             hs = gru_scan_reference(xp, wh, bh, h0)
             got = gru_scan_backward(xp, wh, bh, h0, hs, g)
+            again = gru_scan_backward(xp, wh, bh, h0, hs, g)
             want = gru_scan_backward_reference(xp, wh, bh, h0, hs, g)
             torch.cuda.synchronize()
-            for name, a, b in zip(("dxproj", "dwh", "dbh", "dh0"), got, want):
+            for name, a, a2, b in zip(("dxproj", "dwh", "dbh", "dh0"), got,
+                                      again, want):
                 check(a.dtype == b.dtype and a.shape == b.shape,
                       f"gru bwd {name}: {a.dtype} {tuple(a.shape)}")
                 check(bool(torch.isfinite(a.float()).all()),
                       f"gru bwd {name} non-finite")
+                check(torch.equal(a, a2),
+                      f"gru bwd {(T, B, H)} {name} differs between two runs")
                 err = rel_err(a, b)
                 tol = REL_TOL[torch.float32 if b.dtype == torch.float32
                               else dtype]
@@ -281,9 +382,10 @@ def phase5_kernels(card: str) -> dict:
                 errs["gru_scan_backward"] = max(errs["gru_scan_backward"],
                                                 abs_err)
                 print(f"gru_scan_backward vs plain {(T, B, H)} "
-                      f"{str(dtype)[6:]} {name}: max abs err {abs_err:.3e}, "
-                      f"relative to max(1, max |plain|) {err:.3e} "
-                      f"(tol {tol:.0e})", flush=True)
+                      f"{str(dtype)[6:]} ({route} route) {name}: max abs err "
+                      f"{abs_err:.3e}, relative to max(1, max |plain|) "
+                      f"{err:.3e} (tol {tol:.0e}); two runs bit-identical",
+                      flush=True)
                 check(err <= tol, f"gru bwd {name} error {err} > {tol}")
 
         for n, ((T, B, C, K, D, shift), dtype) in enumerate(HEADS_CASES):
@@ -331,6 +433,13 @@ def phase5_kernels(card: str) -> dict:
                                 reps=5),
             # gate recompute, dh = dhp wh^T and dwh = h^T dhp
             **bound([*args, *outs], 3 * 2 * T * B * H * 3 * H)}}
+        other_rows = 24 - gru_cuda._TILE_ROWS  # 16 beside 8
+        with forced("_TILE_ROWS", other_rows):
+            rows_ms = cuda_ms(lambda: gru_scan_backward(*args))
+        with forced("_RESIDENT_HIDDEN", ()):
+            streamed_ms = cuda_ms(lambda: gru_scan_backward(*args), reps=5)
+        fp32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+        fp32_ms = cuda_ms(lambda: gru_scan_backward(*fp32))
         T, B, C, K, D, shift = HEADS_SLICE
         p, z, g = heads_inputs(T, B, C, K, D, torch.bfloat16, seed=30)
         nll, cor, lse = heads_nll_reference(p, z, shift, K)
@@ -346,6 +455,18 @@ def phase5_kernels(card: str) -> dict:
                 g, lse, p, z, shift, K)),
             # the scores again, dz and dp
             "library_ms": None, **bound([g, lse, p, z, *outs], 3 * scores)}
+    stages = gru_backward_stages_ms(args)
+    m = out["gru_scan_backward"]
+    print(f"time gru_scan_backward {SLICE_SHAPE} bf16 on {card}, its three "
+          f"stages from torch.profiler: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items())
+          + f"; the reversed recurrence "
+          f"{stages['recurrence'] / SLICE_SHAPE[0] * 1e3:.3f} us a step; the "
+          f"whole call {m['ms']:.4f} ms = "
+          f"{m['ms'] / SLICE_SHAPE[0] * 1e3:.3f} us a step ({gru_cuda._TILE_ROWS} rows a "
+          f"cluster; {other_rows} rows {rows_ms:.4f} ms; fp32 {fp32_ms:.4f} "
+          f"ms); the streamed kernels at this shape {streamed_ms:.4f} ms",
+          flush=True)
     out["gru_scan_backward"]["library_ms"] = cudnn_gru_backward_ms()
     for name, m in out.items():
         m["max_abs_err"] = errs[name]
@@ -354,6 +475,33 @@ def phase5_kernels(card: str) -> dict:
               f"{m['bound_ms']:.4f} ms by {m['bound_by']}, library call "
               f"{m['library_ms'] and round(m['library_ms'], 4)} ms",
               flush=True)
+    return out
+
+
+BACKWARD_STAGES = {"gates": ("gru_gates_kernel",),
+                   "recurrence": ("gru_bwd_resident_kernel",
+                                  "gru_scan_bwd_kernel"),
+                   "reduction": ("gru_bwd_reduce_kernel",
+                                 "gru_bwd_finish_kernel")}
+
+
+def gru_backward_stages_ms(args, calls=5) -> dict:
+    """Device ms a call of each stage of `gru_scan_backward(*args)`, by
+    kernel name, from torch.profiler over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    gru_scan_backward(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            gru_scan_backward(*args)
+        torch.cuda.synchronize()
+    out = dict.fromkeys(BACKWARD_STAGES, 0.0)
+    for ev in prof.key_averages():
+        for stage, names in BACKWARD_STAGES.items():
+            if any(name in ev.key for name in names):
+                out[stage] += ev.device_time_total / calls / 1e3
+    check(all(v > 0 for v in out.values()), f"a stage without time: {out}")
     return out
 
 
@@ -1188,35 +1336,7 @@ def main() -> None:
           f"{_build.library_path().name}", flush=True)
 
     # 3. kernel vs plain, on the same CUDA tensors
-    max_err = 0.0
-    with torch.inference_mode():
-        for n, ((T, B, H), dtype) in enumerate(CASES):
-            args = gru_inputs(T, B, H, dtype, seed=n)
-            out = gru_scan(*args)
-            ref = gru_scan_reference(*args)
-            torch.cuda.synchronize()
-            check(out.dtype == ref.dtype == dtype
-                  and tuple(out.shape) == (T, B, H), f"{out.shape} {out.dtype}")
-            check(bool(torch.isfinite(out.float()).all()), "non-finite hs")
-            err = (out.float() - ref.float()).abs().max().item()
-            max_err = max(max_err, err)
-            print(f"gru_scan vs plain {(T, B, H)} {str(dtype)[6:]}: max abs "
-                  f"err {err:.3e} (tol {TOL[dtype]:.0e})", flush=True)
-            check(err <= TOL[dtype], f"gru_scan error {err} > {TOL[dtype]}")
-
-        T, B, H = SLICE_SHAPE
-        args = gru_inputs(T, B, H, torch.bfloat16, seed=0)
-        cudnn, x, h0 = cudnn_gru(T, B, H)
-        gru_fwd = {"max_abs_err": max_err,
-                   "ms": cuda_ms(lambda: gru_scan(*args)),
-                   "plain_ms": cuda_ms(lambda: gru_scan_reference(*args)),
-                   "library_ms": cuda_ms(lambda: cudnn(x, h0)),
-                   **bound([*args, gru_scan(*args)], 2 * T * B * H * 3 * H)}
-    print(f"time {SLICE_SHAPE} bf16 on {card}: kernel {gru_fwd['ms']:.4f} "
-          f"ms, plain {gru_fwd['plain_ms']:.4f} ms, bound "
-          f"{gru_fwd['bound_ms']:.4f} ms by {gru_fwd['bound_by']}, "
-          f"torch.nn.GRU (cuDNN, yardstick only) {gru_fwd['library_ms']:.4f} "
-          f"ms", flush=True)
+    gru_fwd = phase3_gru(card)
 
     # 4. the slice: tpu_fast at full width, random weights from a seed
     cfg = presets.tpu_fast()

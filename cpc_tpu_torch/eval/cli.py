@@ -5,11 +5,15 @@
 
 Port of the `--extract` branch of `cpc_tpu/eval/cli.py`. The config is
 `--config`, else `<workdir>/config.json` (written by either package), else
-`baseline`. The weights are `<workdir>/jax_params.npz`, the JAX package's
-params flattened to '/'-joined keys (`cpc_tpu_torch.interop.flatten_params`);
-without that file the model is randomly initialized from `train.seed` and a
-warning says so. `--device cuda` on a machine without a GPU raises. Probes,
-the battery and export wait (ROADMAP.md §A10, §A14).
+`baseline`. The weights are, in this order: the newest checkpoint that
+`python -m cpc_tpu_torch.train` wrote under `<workdir>/<train.checkpoint_dir>`
+(as the JAX package's CLI restores its workdir's newest one); else
+`<workdir>/jax_params.npz`, the JAX package's params flattened to '/'-joined
+keys (`cpc_tpu_torch.interop.flatten_params`); else a model randomly
+initialized from `train.seed`, with a warning that says so. The printed JSON
+line names the checkpoint's step as `checkpoint_step` (0 without one).
+`--device cuda` on a machine without a GPU raises. Probes, the battery and
+export wait (ROADMAP.md §A10, §A14).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from cpc_tpu_torch.data.wavio import decode_mono
 from cpc_tpu_torch.eval.features import extract_features
 from cpc_tpu_torch.interop import from_jax_params, unflatten_params
 from cpc_tpu_torch.models.cpc import CPCModel
+from cpc_tpu_torch.train.checkpoint import CheckpointManager
 
 
 def main(argv=None) -> int:
@@ -60,15 +65,24 @@ def main(argv=None) -> int:
     else:
         cfg = presets.by_name("baseline")
 
+    ckpt_dir = os.path.join(args.workdir, cfg.train.checkpoint_dir)
     weights = os.path.join(args.workdir, "jax_params.npz")
     gen = torch.Generator().manual_seed(cfg.train.seed)
     model = CPCModel(cfg.model, generator=gen)
-    if os.path.exists(weights):
+    # the manager creates its directory: only ask it about one that exists
+    restored = CheckpointManager(ckpt_dir).restore_latest(
+        map_location="cpu") if os.path.isdir(ckpt_dir) else None
+    step = 0
+    if restored is not None:
+        model.load_state_dict(restored["model"])
+        step = restored["meta"]["step"]
+    elif os.path.exists(weights):
         with np.load(weights) as npz:
             model.load_state_dict(from_jax_params(unflatten_params(npz), cfg))
     else:
-        print(json.dumps({"warning": f"no {weights}; extracting with a "
-                          "randomly initialized model"}))
+        print(json.dumps({"warning": f"no checkpoint under {ckpt_dir} and "
+                          f"no {weights}; extracting with a randomly "
+                          "initialized model"}))
     model.to(device).eval()
 
     wave, _ = decode_mono(args.extract, cfg.data.sample_rate)
@@ -76,7 +90,8 @@ def main(argv=None) -> int:
                             hop=args.hop, normalize=cfg.data.normalize)
     out = args.out or args.extract + ".features.npz"
     np.savez(out, z=z, c=c)
-    print(json.dumps({"extract": args.extract, "out": out,
-                      "device": str(device), "z_shape": list(z.shape),
+    print(json.dumps({"checkpoint_step": step, "extract": args.extract,
+                      "out": out, "device": str(device),
+                      "z_shape": list(z.shape),
                       "c_shape": list(c.shape)}))
     return 0

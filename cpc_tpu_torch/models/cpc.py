@@ -58,7 +58,8 @@ class CPCModel(nn.Module):
                     "recurrence keeps its per-step carries for the backward "
                     "pass either way")
             self.gar = GRU(d_in, config.ar.d_ar, config.ar.num_layers,
-                           self.dtype, param_dtype, generator)
+                           self.dtype, param_dtype, generator,
+                           config.ar.use_pallas)
         elif config.ar.kind == "transformer":
             self.gar = CausalTransformer(d_in, config.ar, self.dtype,
                                          param_dtype, generator)

@@ -7,12 +7,19 @@ for a CUDA tensor, its plain PyTorch version for a CPU tensor. Gate order
 r, z, n as in torch.nn.GRU; weights keep the JAX package's layout (wi
 (D, 3H), wh (H, 3H)) and names (`layer{n}.wi`, ...).
 
-The recurrence always has the Pallas kernel's numerics (gates and carried h
-in fp32, output rounded to the compute dtype), which is what the JAX
-package runs with `ar.use_pallas=True`. Its `lax.scan` path, taken with
-`use_pallas=False`, equals it in fp32; in bf16 it carries h in bf16
-instead. The JAX package's v5e envelope fallback (B > 384 or H > 256) is
-not carried over: a CUDA tensor runs the kernel or raises.
+The recurrence has the Pallas kernel's numerics (gates and carried h in
+fp32, output rounded to the compute dtype), which is what the JAX package
+runs with `ar.use_pallas=True`. `use_pallas` is taken from `cfg.model.ar`
+and kept on the module, and both settings run `gru_scan`: the JAX package's
+`lax.scan` path, taken with `use_pallas=False`, equals the kernel's in fp32,
+and in bf16, where it carries h in bf16, the port's c is within 1.4e-2 of it
+with the modules' own initialisation (T = 128; the band of the other bf16
+GRU tests is 2e-2). A tensor-code recurrence that carries h in bf16 lands as
+far from it (1.4e-2: two bf16 scans round at different places), so it would
+buy no agreement and lose the kernel; the measurement is in
+tests/test_torch_port_gru_resident.py. The JAX package's v5e envelope
+fallback (B > 384 or H > 256) is not carried over: a CUDA tensor runs the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ from cpc_tpu_torch.ops.gru_cuda import gru_scan
 
 class _GRULayer(nn.Module):
     def __init__(self, input_size: int, hidden_size: int, dtype,
-                 param_dtype, generator: Optional[torch.Generator]):
+                 param_dtype, generator: Optional[torch.Generator],
+                 use_pallas: bool = False):
         super().__init__()
         D, H = input_size, hidden_size
         self.dtype = dtype
+        self.use_pallas = use_pallas  # either way gru_scan (module docstring)
         self.wi = nn.Parameter(lecun_normal_(
             torch.empty(D, 3 * H, dtype=param_dtype), D, generator))
         self.bi = nn.Parameter(torch.zeros(3 * H, dtype=param_dtype))
@@ -64,13 +73,15 @@ class GRU(nn.Module):
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  dtype=torch.float32, param_dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_pallas: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.use_pallas = use_pallas
         for n in range(num_layers):
             self.add_module(f"layer{n}", _GRULayer(
                 input_size if n == 0 else hidden_size, hidden_size, dtype,
-                param_dtype, generator))
+                param_dtype, generator, use_pallas))
 
     def layers(self):
         return [getattr(self, f"layer{n}") for n in range(self.num_layers)]

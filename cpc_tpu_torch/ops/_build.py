@@ -116,8 +116,9 @@ def load_library() -> ctypes.CDLL:
     operand = [ptr, i64, i64, i64]  # a tensor and three of its strides
     attn_tail = [i32] * 4 + [ctypes.c_float] + [i32] * 3 + [ptr]
     signatures = {
-        "gru_scan_fwd": [ptr] * 5 + [i32] * 5 + [ptr],
-        "gru_scan_bwd": [ptr] * 14 + [i32] * 6 + [ptr],
+        "gru_scan_fwd": [ptr] * 5 + [i32] * 6 + [ptr],
+        "gru_scan_bwd": [ptr] * 14 + [i32] * 7 + [ptr],
+        "gru_exchange_probe": [ptr] + [i32] * 4 + [ptr],
         "heads_nll_fwd": [ptr] * 5 + [i32] * 8 + [ptr],
         "heads_nll_bwd": [ptr] * 7 + [i32] * 9 + [ptr],
         "same_step_nll_fwd": [ptr] * 5 + [i32] * 6 + [i64] * 4 + [i32] * 2

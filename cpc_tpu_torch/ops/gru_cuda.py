@@ -22,10 +22,20 @@ gates are recomputed from round(h_{t-1}) @ wh + bh in fp32, the recurrent
 gradient dh is carried in fp32, dwh and dbh are summed in fp32, and the
 results are cast to the dtypes of xproj, wh, bh and h0.
 
+The backward kernels are three stages (`csrc/gru_scan.cu`): the gates of
+all T*B rows at once, the reversed recurrence that consumes them, and the
+sums for dwh and dbh. `gru_gates_reference` and
+`gru_scan_backward_split_reference` are that split in plain PyTorch, equal
+to `gru_scan_backward_reference` bit for bit.
+
 Dispatch is by the device of `xproj`: a CPU tensor goes through
 `_GruScanPlain` (`gru_scan_reference` forward, `gru_scan_backward_reference`
 backward), a CUDA tensor through `_GruScanCuda`, whose forward and backward
-are the kernels, which run or raise.
+are the kernels, which run or raise. On the card `gru_route` names the
+kernels a shape takes: "resident" (wh kept in the shared memory of a
+thread-block cluster; every preset) or "streamed" (wh read from L2 every
+step; the widths the cluster does not take). A route that cannot launch
+raises; neither gives way to the other.
 """
 
 from __future__ import annotations
@@ -35,6 +45,29 @@ import torch
 from cpc_tpu_torch.ops._build import check_launch, load_library
 
 _WIRE_DTYPES = (torch.float32, torch.bfloat16)
+_RESIDENT_HIDDEN = (32, 64, 128, 256)  # H / 32 blocks a cluster, at most 8
+_TILE_ROWS = 8  # batch rows a cluster of the resident route (8 or 16)
+
+
+def gru_route(B: int, H: int, dtype: torch.dtype) -> str:
+    """The kernels that `gru_scan` and `gru_scan_backward` launch for batch
+    B, width H and wire dtype `dtype` on the card: "resident" or "streamed"
+    (module docstring). The resident route takes the widths that are 1, 2,
+    4 or 8 warps of hidden units (a cluster of H / 32 blocks, each holding
+    its 32 units' slice of wh: at most 96 KB, in fp32 at H = 256), at any
+    batch and in both dtypes."""
+    if dtype not in _WIRE_DTYPES:
+        raise TypeError(f"dtype {dtype} not in {_WIRE_DTYPES}")
+    if B < 1 or H < 1:
+        raise ValueError(f"empty shape B={B}, H={H}")
+    return "resident" if H in _RESIDENT_HIDDEN else "streamed"
+
+
+def _tile_rows(xproj: torch.Tensor) -> int:
+    """The C entry points' `tile_rows`: 0 on the streamed route."""
+    _, B, H3 = xproj.shape
+    resident = gru_route(B, H3 // 3, xproj.dtype) == "resident"
+    return _TILE_ROWS if resident else 0
 
 
 def gru_scan_reference(xproj: torch.Tensor, wh: torch.Tensor,
@@ -93,6 +126,61 @@ def gru_scan_backward_reference(xproj, wh, bh, h0, hs, g):
         dwh += h_prev.T @ dhp
         dbh += dhp.sum(0)
         dh = dh * z + dhp @ w32.T
+    return dxproj, dwh.to(wh.dtype), dbh.to(bh.dtype), dh.to(h0.dtype)
+
+
+def gru_gates_reference(xproj, wh, bh, h0, hs):
+    """Stage 1 of the backward in plain PyTorch: the gates of every step
+    from h_{t-1} = (round(h0), hs[:-1]), none of which depends on the
+    reversed recurrence. Returns (r, z, n, hn), each (T, B, H) fp32. The
+    product is made step by step, with the shapes
+    `gru_scan_backward_reference` gives it, so the two agree bit for bit."""
+    T, B, H3 = xproj.shape
+    H = H3 // 3
+    w32 = wh.float()
+    b32 = bh.float()
+    hprev = torch.cat([h0.to(hs.dtype)[None], hs[:-1]]).float()
+    gates = []
+    for t in range(T):
+        hp = hprev[t].to(wh.dtype).float() @ w32 + b32
+        xr, xz, xn = xproj[t].float().split(H, dim=-1)
+        hr, hz, hn = hp.split(H, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        gates.append(torch.stack([r, z, torch.tanh(xn + r * hn), hn]))
+    r, z, n, hn = torch.stack(gates, dim=1)
+    return r, z, n, hn
+
+
+def gru_scan_backward_split_reference(xproj, wh, bh, h0, hs, g):
+    """The backward as the kernels split it, in plain PyTorch: stage 1
+    (`gru_gates_reference`), the reversed recurrence that only consumes its
+    gates and writes dxproj and dhp, and the sums for dwh and dbh over the
+    stored dhp, in the recurrence's order. Returns (dxproj, dwh, dbh, dh0)
+    as `gru_scan_backward_reference`."""
+    T, B, H3 = xproj.shape
+    H = H3 // 3
+    w32 = wh.float()
+    r, z, n, hn = gru_gates_reference(xproj, wh, bh, h0, hs)
+    hprev = torch.cat([h0.to(hs.dtype)[None], hs[:-1]]).float()
+    dh = torch.zeros(B, H, dtype=torch.float32, device=xproj.device)
+    dxproj = torch.empty_like(xproj)
+    dhp = torch.empty((T, B, H3), dtype=torch.float32, device=xproj.device)
+    for t in range(T - 1, -1, -1):
+        dh = dh + g[t].float()
+        dz = dh * (hprev[t] - n[t])
+        dn_pre = dh * (1.0 - z[t]) * (1.0 - n[t] * n[t])
+        dhn = dn_pre * r[t]
+        dr_pre = dn_pre * hn[t] * r[t] * (1.0 - r[t])
+        dz_pre = dz * z[t] * (1.0 - z[t])
+        dxproj[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
+        dhp[t] = torch.cat([dr_pre, dz_pre, dhn], dim=-1)
+        dh = dh * z[t] + dhp[t] @ w32.T
+    dwh = torch.zeros(H, H3, dtype=torch.float32, device=xproj.device)
+    dbh = torch.zeros(H3, dtype=torch.float32, device=xproj.device)
+    for t in range(T - 1, -1, -1):
+        dwh += hprev[t].T @ dhp[t]
+        dbh += dhp[t].sum(0)
     return dxproj, dwh.to(wh.dtype), dbh.to(bh.dtype), dh.to(h0.dtype)
 
 
@@ -157,8 +245,9 @@ def _launch(xproj, wh, bh, h0) -> torch.Tensor:
     stream = torch.cuda.current_stream(xproj.device)
     err = lib.gru_scan_fwd(
         xproj.data_ptr(), wh.data_ptr(), b32.data_ptr(), h0.data_ptr(),
-        out.data_ptr(), T, B, H, int(xproj.dtype == torch.bfloat16),
-        xproj.device.index, stream.cuda_stream)
+        out.data_ptr(), T, B, H, _tile_rows(xproj),
+        int(xproj.dtype == torch.bfloat16), xproj.device.index,
+        stream.cuda_stream)
     check_launch(lib, err, "gru_scan")
     gru_scan.launches += 1
     return out
@@ -175,8 +264,11 @@ def _launch_bwd(xproj, wh, bh, h0, hs, g):
     dev, f32 = xproj.device, torch.float32
     # these temporaries are freed after the launch, which is safe: the
     # caching allocator reuses them only for work queued later on the stream
-    wht = wh.t().contiguous()  # wh by rows becomes coalesced columns
     b32 = bh.float()
+    tile_rows = _tile_rows(xproj)
+    # stage 1's gates (r, z, n, hn), which only the resident route stores
+    gates = torch.empty((T * B * 4 * H if tile_rows else 0,), dtype=f32,
+                        device=dev)
     dxproj = torch.empty_like(xproj)
     dhp = torch.empty((T, B, H3), dtype=f32, device=dev)
     dh0 = torch.empty((B, H), dtype=f32, device=dev)
@@ -186,10 +278,10 @@ def _launch_bwd(xproj, wh, bh, h0, hs, g):
     dbh = torch.empty((H3,), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev)
     err = lib.gru_scan_bwd(
-        xproj.data_ptr(), wh.data_ptr(), wht.data_ptr(), b32.data_ptr(),
-        h0.data_ptr(), hs.data_ptr(), g.data_ptr(), dxproj.data_ptr(),
-        dhp.data_ptr(), dh0.data_ptr(), pdwh.data_ptr(), pdbh.data_ptr(),
-        dwh.data_ptr(), dbh.data_ptr(), T, B, H, splits,
+        xproj.data_ptr(), wh.data_ptr(), b32.data_ptr(), h0.data_ptr(),
+        hs.data_ptr(), g.data_ptr(), dxproj.data_ptr(), dhp.data_ptr(),
+        dh0.data_ptr(), pdwh.data_ptr(), pdbh.data_ptr(), dwh.data_ptr(),
+        dbh.data_ptr(), gates.data_ptr(), T, B, H, splits, tile_rows,
         int(xproj.dtype == torch.bfloat16), dev.index, stream.cuda_stream)
     check_launch(lib, err, "gru_scan_backward")
     gru_scan_backward.launches += 1
@@ -209,6 +301,22 @@ def gru_scan_backward(xproj, wh, bh, h0, hs, g):
 
 
 gru_scan_backward.launches = 0
+
+
+def cluster_exchange_probe(steps: int, hidden: int,
+                           device: torch.device) -> torch.Tensor:
+    """Launches, on one cluster, `steps` times the exchange and the cluster
+    barrier of the resident forward without its product: the serial floor
+    that no product can get under, for a caller to time. Returns the
+    kernel's sink tensor."""
+    lib = load_library()
+    device = torch.device(device)
+    sink = torch.empty((8 * 256,), dtype=torch.float32, device=device)
+    err = lib.gru_exchange_probe(
+        sink.data_ptr(), steps, hidden, _TILE_ROWS, device.index or 0,
+        torch.cuda.current_stream(device).cuda_stream)
+    check_launch(lib, err, "gru_exchange_probe")
+    return sink
 
 
 class _GruScanPlain(torch.autograd.Function):

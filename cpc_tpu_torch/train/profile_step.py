@@ -40,8 +40,11 @@ import torch
 # kernels, then cuDNN's convolutions (whose implicit-GEMM kernels also say
 # "gemm"), then cuBLAS (whose Hopper kernels are named nvjet_*)
 STAGES = (
-    ("GRU backward recurrence kernel", ("gru_scan_bwd_kernel",)),
-    ("GRU forward kernel", ("gru_scan_fwd_kernel",)),
+    # resident route (every preset), then the streamed route's kernels
+    ("GRU forward kernel", ("gru_fwd_resident_kernel", "gru_scan_fwd_kernel")),
+    ("GRU backward gates kernel (all steps at once)", ("gru_gates_kernel",)),
+    ("GRU backward recurrence kernel",
+     ("gru_bwd_resident_kernel", "gru_scan_bwd_kernel")),
     ("GRU dwh/dbh reduction kernels", ("gru_bwd_reduce", "gru_bwd_finish")),
     ("fused heads + InfoNCE forward kernel", ("heads_nll_fwd",)),
     ("fused heads + InfoNCE backward kernels",

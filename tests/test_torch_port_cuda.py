@@ -29,7 +29,8 @@ from cpc_tpu_torch.ops.attention_cuda import (
 from cpc_tpu_torch.ops.conv_cuda import (conv_chain, conv_pyramid_forward,
                                          conv_pyramid_reference,
                                          fused_conv_encoder)
-from cpc_tpu_torch.ops.gru_cuda import (gru_scan, gru_scan_backward,
+from cpc_tpu_torch.ops.gru_cuda import (gru_route, gru_scan,
+                                        gru_scan_backward,
                                         gru_scan_backward_reference,
                                         gru_scan_reference)
 from cpc_tpu_torch.ops.infonce_allsteps_cuda import (
@@ -121,6 +122,68 @@ def test_gradient_through_the_kernels_matches_the_plain_function():
         gru_scan_reference(*[a.detach() for a in leaves]), g)
     for a, b in zip(leaves, want):
         torch.testing.assert_close(a.grad, b, rtol=0, atol=1e-5)
+
+
+# (T, B, H): the resident route (H = 256 and 32) at one row, at ragged last
+# tiles of a cluster's 16 rows and beyond one tile, at one step and at many;
+# the streamed route at a width that is no whole warp, at widths whose slice
+# of wh does not fit a block, and at many steps
+ROUTE_SHAPES = [(1, 1, 256), (600, 3, 256), (5, 17, 256), (9, 65, 256),
+                (4, 3, 32), (6, 17, 64), (1, 3, 40), (600, 1, 40),
+                (3, 17, 512), (2, 3, 1024), (4, 65, 40)]
+
+
+def _route_id(shape):
+    T, B, H = shape
+    return f"{gru_route(B, H, torch.float32)}-T{T}-B{B}-H{H}"
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", ROUTE_SHAPES, ids=_route_id)
+def test_both_routes_match_plain_and_repeat(shape, dtype, tol):
+    """Forward and backward of either route against the plain versions, and
+    a second run of each bit for bit."""
+    T, B, H = shape
+    xp, wh, bh, h0 = _scan_inputs(T, B, H, dtype, seed=T + B + H)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (T, B, H))).to("cuda", dtype)
+    out, again = gru_scan(xp, wh, bh, h0), gru_scan(xp, wh, bh, h0)
+    ref = gru_scan_reference(xp, wh, bh, h0)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (T, B, H)
+    assert torch.equal(out, again)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    got = gru_scan_backward(xp, wh, bh, h0, ref, g)
+    twice = gru_scan_backward(xp, wh, bh, h0, ref, g)
+    want = gru_scan_backward_reference(xp, wh, bh, h0, ref, g)
+    torch.cuda.synchronize()
+    for a, a2, b in zip(got, twice, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, a2)
+        assert _rel(a, b) <= REL[torch.float32 if b.dtype == torch.float32
+                                 else dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(9, 3, 256), (5, 17, 64), (9, 3, 40)],
+                         ids=_route_id)
+def test_autograd_function_gradient_on_either_route(shape, dtype):
+    T, B, H = shape
+    leaves = [a.clone().requires_grad_()
+              for a in _scan_inputs(T, B, H, dtype, seed=3)]
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (T, B, H))).to("cuda", dtype)
+    hs = gru_scan(*leaves)
+    torch.autograd.backward(hs, g)
+    detached = [a.detach() for a in leaves]
+    want = gru_scan_backward_reference(*detached, hs.detach(), g)
+    for a, b in zip(leaves, want):
+        assert a.grad.dtype == b.dtype
+        assert _rel(a.grad, b) <= REL[torch.float32
+                                      if b.dtype == torch.float32 else dtype]
 
 
 def _heads_inputs(T, B, C, K, D, dtype, seed=0):

@@ -8,8 +8,15 @@ from cpc_tpu_torch.train.profile_step import OTHER, main, stage_of
 
 
 @pytest.mark.parametrize("name,stage", [
-    ("void gru_scan_bwd_kernel<__nv_bfloat16>(...)", "GRU backward"),
+    ("void gru_scan_bwd_kernel<__nv_bfloat16>(...)",
+     "GRU backward recurrence"),
     ("void gru_scan_fwd_kernel<float>(...)", "GRU forward"),
+    ("void (anonymous namespace)::gru_fwd_resident_kernel<__nv_bfloat16, 8>"
+     "(...)", "GRU forward"),
+    ("void (anonymous namespace)::gru_gates_kernel<__nv_bfloat16>(...)",
+     "GRU backward gates"),
+    ("void (anonymous namespace)::gru_bwd_resident_kernel<float, 16>(...)",
+     "GRU backward recurrence"),
     ("void gru_bwd_reduce_kernel<__nv_bfloat16>(...)", "GRU dwh/dbh"),
     ("gru_bwd_finish_kernel(float const*, ...)", "GRU dwh/dbh"),
     ("void heads_nll_fwd_kernel<float>(...)", "fused heads + InfoNCE forward"),
