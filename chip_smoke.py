@@ -62,22 +62,30 @@ Phases, in order; any failure exits non-zero:
    against the same step composed from the plain versions: loss, per-k
    accuracy, grad_norm, the grads of the heads' weight and of the last
    encoder layer; then the steady step time and audio-s/s of each path;
-11. the causal flash-attention kernels (forward, dQ, dK/dV) against their
-   plain versions on the same CUDA tensors, at transformer_fast's
-   (B, T, H, Dh) = (64, 128, 8, 32), at a long context (16, 1024, 8, 32)
-   and at a ragged (2, 200, 3, 16), each as bf16 'flash16' (tensor cores),
-   bf16 'flash' and fp32 'flash' (SIMT): o, lse, dq, dk, dv, and the
-   backward twice for bit-identical results; then kernel and plain times
-   at the first two shapes in bf16 'flash16' (the kernels' from the replay
-   of a CUDA graph, since one call runs for microseconds), with
+11. the causal flash-attention kernels against their plain versions on the
+   same CUDA tensors, at transformer_fast's (B, T, H, Dh) = (64, 128, 8, 32),
+   at a long context (16, 1024, 8, 32) and at a ragged (2, 200, 3, 16), each
+   as bf16 'flash16' (tensor cores), bf16 'flash' and fp32 'flash' (SIMT):
+   o and lse of the forward; dq, dk, dv of `flash_attention_backward` on the
+   route the shape takes (under 'flash16' the one-pass kernel, head-resident
+   or split, and then on the other of the two as well; else the pair) and of
+   `flash_attention_dq` and `flash_attention_dkv` (the pair) directly; every
+   backward twice for bit-identical results; then kernel and plain times at
+   the first two shapes in bf16 'flash16' (the kernels' from the replay of a
+   CUDA graph, since one call runs for microseconds), with
    `scaled_dot_product_attention(is_causal=True)`, forward and backward, as
-   the library yardstick;
+   the library yardstick, an empty kernel at the forward's and at the
+   one-pass backward's grid, block and shared memory over the same replay
+   as the launch floor, the forward that the tiled one replaced, and the
+   one-pass backward on its other route;
 12. the transformer slice through its entry points:
    `cpc_tpu_torch.train.cli.main` trains `transformer_fast` at full width
    for 10 steps with `--set model.ar.attn_impl=flash16`, then `=flash`,
-   then the default `xla`: metrics finite, each attention kernel launched
-   num_layers = 2 times per step (never under `xla`), the fused heads
-   kernels once per step, the GRU kernels never, a checkpoint written; then
+   then the default `xla`: metrics finite, the forward kernel and, under
+   `flash16`, the one-pass backward kernel (under `flash` the dQ and the
+   dK/dV kernel) launched num_layers = 2 times per step and the others
+   never (none under `xla`), the fused heads kernels once per step, the GRU
+   kernels never, a checkpoint written; then
    5 steps at the long context (`--snippet-samples 163840 --batch-size 16`,
    T = 1 024, on a corpus of 12 s files written here, since the CLI's own
    synthetic files hold 4 s); then `extract_features` of the `flash16`
@@ -115,11 +123,13 @@ from cpc_tpu_torch import CPCModel, extract_features, presets
 from cpc_tpu_torch.config import apply_overrides
 from cpc_tpu_torch.data.loader import device_prepare
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
-from cpc_tpu_torch.ops import _build, gru_cuda
+from cpc_tpu_torch.ops import _build, attention_cuda, gru_cuda
 from cpc_tpu_torch.ops.attention_cuda import (
-    _FlashPlain, flash_attention_dkv, flash_attention_dkv_reference,
-    flash_attention_dq, flash_attention_dq_reference, flash_attention_forward,
-    flash_attention_forward_reference, row_dot)
+    _FlashPlain, attention_route, flash_attention_backward,
+    flash_attention_backward_reference, flash_attention_dkv,
+    flash_attention_dkv_reference, flash_attention_dq,
+    flash_attention_dq_reference, flash_attention_forward,
+    flash_attention_forward_reference, launch_floor, launch_shape, row_dot)
 from cpc_tpu_torch.ops.conv_cuda import (_ConvPyramidPlain, conv_chain,
                                          conv_pyramid_forward,
                                          conv_pyramid_reference)
@@ -238,20 +248,21 @@ def bound(tensors, flops: float, dtype=torch.bfloat16) -> dict:
 
 # ---------------------------------------------------------------- phase 3
 class forced:
-    """Sets a constant of `gru_cuda` for the time of a `with` block: the
-    other rows a cluster, or no width on the resident route (so that the
-    slice's shape runs the streamed kernels), for a time beside the one the
-    port runs."""
+    """Sets a constant of `gru_cuda` (or of `module`) for the time of a
+    `with` block: the other rows a cluster, or no width on the resident
+    route (so that the slice's shape runs the streamed kernels), or the
+    attention kernels' other route, for a time beside the one the port
+    runs."""
 
-    def __init__(self, name, value):
-        self.name, self.value = name, value
+    def __init__(self, name, value, module=gru_cuda):
+        self.name, self.value, self.module = name, value, module
 
     def __enter__(self):
-        self.kept = getattr(gru_cuda, self.name)
-        setattr(gru_cuda, self.name, self.value)
+        self.kept = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
 
     def __exit__(self, *exc):
-        setattr(gru_cuda, self.name, self.kept)
+        setattr(self.module, self.name, self.kept)
 
 
 def phase3_gru(card: str) -> dict:
@@ -539,13 +550,17 @@ COUNTED = {"gru_scan": gru_scan, "gru_scan_backward": gru_scan_backward,
            "allsteps_nll_forward": allsteps_nll_forward,
            "allsteps_nll_backward": allsteps_nll_backward,
            "flash_attention_forward": flash_attention_forward,
+           "flash_attention_backward": flash_attention_backward,
            "flash_attention_dq": flash_attention_dq,
            "flash_attention_dkv": flash_attention_dkv,
            "conv_pyramid_forward": conv_pyramid_forward}
 GRU_KERNELS = ("gru_scan", "gru_scan_backward")
 HEADS_KERNELS = ("heads_nll_forward", "heads_nll_backward")
-ATTN_KERNELS = ("flash_attention_forward", "flash_attention_dq",
-                "flash_attention_dkv")
+ATTN_KERNELS = ("flash_attention_forward", "flash_attention_backward",
+                "flash_attention_dq", "flash_attention_dkv")
+# the attention kernels a training step launches, by ar.attn_impl
+ATTN_ON_PATH = {"flash16": ATTN_KERNELS[:2],
+                "flash": (ATTN_KERNELS[0],) + ATTN_KERNELS[2:], "xla": ()}
 LOSS_PATHS = {  # the CLI's --set, and the loss kernels the path launches
     "fused": ([], ("heads_nll_forward", "heads_nll_backward")),
     "all_steps": (["--set", "model.loss.negatives=all_steps"],
@@ -921,12 +936,17 @@ def attn_work(B, T, H, Dh, products: int) -> float:
     return products * 2.0 * Dh * (T * (T + 1) // 2) * B * H
 
 
+# the one-pass backward's other route, by the route a shape takes: the
+# constants of `attention_cuda` that send it there
+OTHER_ROUTE = {"one_pass_resident": ("_RESIDENT_MIN_HEADS", 1 << 30),
+               "one_pass_split": ("_RESIDENT_MIN_HEADS", 1)}
+
+
 def phase11_kernels(card: str) -> dict:
-    """The three attention kernels against their plain versions; returns
+    """The four attention kernels against their plain versions; returns
     {name: {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}} at
     transformer_fast's shape."""
-    names = ("flash_attention_forward", "flash_attention_dq",
-             "flash_attention_dkv")
+    names = ATTN_KERNELS
     errs = dict.fromkeys(names, 0.0)
     with torch.inference_mode():
         for n, shape in enumerate(ATTN_SHAPES):
@@ -934,29 +954,58 @@ def phase11_kernels(card: str) -> dict:
                 q, k, v, do = attn_inputs(*shape, dtype, seed=50 + n)
                 scale = shape[3] ** -0.5
                 what = f"{shape} {mode}"
+                route = attention_route(*shape, dtype, p_dtype)
                 o, lse = flash_attention_forward(q, k, v, scale, p_dtype)
                 r_o, r_lse = flash_attention_forward_reference(q, k, v, scale,
                                                                p_dtype)
                 dres = row_dot(do, r_o)
                 args = (q, k, v, do, r_lse, dres, scale, p_dtype)
-                dq = flash_attention_dq(*args)
-                dk, dv = flash_attention_dkv(*args)
-                dq2 = flash_attention_dq(*args)
-                dk2, dv2 = flash_attention_dkv(*args)
-                r_dq = flash_attention_dq_reference(*args)
-                r_dk, r_dv = flash_attention_dkv_reference(*args)
+                r_dq, r_dk, r_dv = flash_attention_backward_reference(*args)
+                # (kernel, route, dq, dk, dv), each run twice
+                runs = []
+                one_pass = route.backward != "pair"
+                before = flash_attention_backward.launches
+                for _ in range(2):
+                    runs.append((names[1] if one_pass else "pair",
+                                 route.backward,
+                                 *flash_attention_backward(*args)))
+                check(flash_attention_backward.launches - before
+                      == 2 * one_pass, f"{what}: route {route.backward} but "
+                      f"{flash_attention_backward.launches - before} "
+                      f"launches of the one-pass kernel")
+                if one_pass:
+                    with forced(*OTHER_ROUTE[route.backward],
+                                module=attention_cuda):
+                        other = attention_route(*shape, dtype, p_dtype)
+                        for _ in range(2 * (other.backward != route.backward)):
+                            runs.append((names[1], other.backward,
+                                         *flash_attention_backward(*args)))
+                for _ in range(2):
+                    dk, dv = flash_attention_dkv(*args)
+                    runs.append(("pair", "pair", flash_attention_dq(*args),
+                                 dk, dv))
                 torch.cuda.synchronize()
                 lse_err = (lse - r_lse).abs().max().item()
                 check(lse_err <= LSE_TOL, f"{what}: lse error {lse_err}")
-                check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                      and torch.equal(dv, dv2),
-                      f"{what}: the backward differs between two runs")
                 tol = ATTN_TOL[dtype]
-                line = [f"lse max abs err {lse_err:.3e} (tol {LSE_TOL:.0e})"]
-                for name, out, a, b in (
-                        (names[0], "o", o, r_o), (names[1], "dq", dq, r_dq),
-                        (names[2], "dk", dk, r_dk),
-                        (names[2], "dv", dv, r_dv)):
+                line = [f"forward ({route.forward}): lse max abs err "
+                        f"{lse_err:.3e} (tol {LSE_TOL:.0e})"]
+                compared = [(names[0], "o", o, r_o)]
+                for first, again in zip(runs[::2], runs[1::2]):
+                    check(all(torch.equal(a, b)
+                              for a, b in zip(first[2:], again[2:])),
+                          f"{what}: the backward ({first[1]}) differs "
+                          f"between two runs")
+                    kernel, via, dq, dk, dv = first
+                    line.append(f"backward ({via})")
+                    compared += [
+                        (names[2] if kernel == "pair" else kernel, "dq", dq,
+                         r_dq),
+                        (names[3] if kernel == "pair" else kernel, "dk", dk,
+                         r_dk),
+                        (names[3] if kernel == "pair" else kernel, "dv", dv,
+                         r_dv)]
+                for name, out, a, b in compared:
                     check(a.dtype == b.dtype == dtype and a.shape == b.shape
                           and a.is_contiguous(),
                           f"{what} {out}: {a.dtype} {tuple(a.shape)}")
@@ -969,8 +1018,8 @@ def phase11_kernels(card: str) -> dict:
                                 f"to max(1, max |plain|) {err:.3e}")
                     check(err <= tol, f"{what} {out} error {err} > {tol}")
                 print(f"flash attention vs plain {what}: {'; '.join(line)} "
-                      f"(tol {tol:.0e}); backward bit-identical over two "
-                      f"runs", flush=True)
+                      f"(tol {tol:.0e}); every backward bit-identical over "
+                      f"two runs", flush=True)
 
     out = {}
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -983,24 +1032,28 @@ def phase11_kernels(card: str) -> dict:
         B, T, H, Dh = shape
         q, k, v, do = attn_inputs(*shape, torch.bfloat16, seed=50)
         scale = Dh ** -0.5
+        route = attention_route(*shape, torch.bfloat16, "bfloat16")
         with torch.inference_mode():
             o, lse = flash_attention_forward_reference(q, k, v, scale,
                                                        "bfloat16")
             dres = row_dot(do, o)
             args = (q, k, v, do, lse, dres, scale, "bfloat16")
-            dq = flash_attention_dq(*args)
-            dk, dv = flash_attention_dkv(*args)
+            dq, dk, dv = flash_attention_backward(*args)
             calls = {
                 names[0]: (lambda: flash_attention_forward(
                     q, k, v, scale, "bfloat16"),
                     lambda: flash_attention_forward_reference(
                         q, k, v, scale, "bfloat16"),
                     bound([q, k, v, o, lse], attn_work(*shape, 2))),
-                names[1]: (lambda: flash_attention_dq(*args),
+                names[1]: (lambda: flash_attention_backward(*args),
+                           lambda: flash_attention_backward_reference(*args),
+                           bound([q, k, v, do, lse, dres, dq, dk, dv],
+                                 attn_work(*shape, 5))),
+                names[2]: (lambda: flash_attention_dq(*args),
                            lambda: flash_attention_dq_reference(*args),
                            bound([q, k, v, do, lse, dres, dq],
                                  attn_work(*shape, 3))),
-                names[2]: (lambda: flash_attention_dkv(*args),
+                names[3]: (lambda: flash_attention_dkv(*args),
                            lambda: flash_attention_dkv_reference(*args),
                            bound([q, k, v, do, lse, dres, dk, dv],
                                  attn_work(*shape, 4)))}
@@ -1008,18 +1061,41 @@ def phase11_kernels(card: str) -> dict:
                           "eager_ms": cuda_ms(kernel, **eager),
                           "plain_ms": cuda_ms(plain, reps=5), **bnd}
                    for name, (kernel, plain, bnd) in calls.items()}
+            # the launch floor: an empty kernel at the grid, block and
+            # shared memory the library launches, over the same replay
+            launches = {half: launch_shape(half, *shape, route.groups)
+                        for half in ("forward", "backward")}
+            floors = {half: cuda_ms(lambda: launch_floor(launch, q.device),
+                                    **on_card)
+                      for half, launch in launches.items()}
+            # beside them: the one-pass backward on its other route
+            with forced(*OTHER_ROUTE[route.backward], module=attention_cuda):
+                other = attention_route(*shape, torch.bfloat16, "bfloat16")
+                other_ms = cuda_ms(lambda: flash_attention_backward(*args),
+                                   **on_card)
             simt = (q, k, v, do, lse, dres, scale, "float32")
             fwd_ms = cuda_ms(lambda: flash_attention_forward(
                 q, k, v, scale, "float32"), **on_card)
             dq_ms = cuda_ms(lambda: flash_attention_dq(*simt), **on_card)
             dkv_ms = cuda_ms(lambda: flash_attention_dkv(*simt), **on_card)
+        print(f"time at {shape}, bf16 flash16, on {card}: forward "
+              f"({route.forward}, launch {launches['forward']}) "
+              f"{out[names[0]]['ms']:.4f} ms, its launch floor (an empty "
+              f"kernel) {floors['forward']:.4f} ms; one-pass backward "
+              f"({route.backward}, launch {launches['backward']}) "
+              f"{out[names[1]]['ms']:.4f} "
+              f"ms, its launch floor {floors['backward']:.4f} ms, on its "
+              f"other route ({other.backward}, groups {other.groups}) "
+              f"{other_ms:.4f} ms, the pair it replaced "
+              f"{out[names[2]]['ms'] + out[names[3]]['ms']:.4f} ms",
+              flush=True)
         print(f"time at {shape}, bf16 flash (fp32 P: its products on the "
               f"SIMT pipe), on {card}: forward {fwd_ms:.4f} ms, dq "
               f"{dq_ms:.4f} ms, dkv {dkv_ms:.4f} ms", flush=True)
         # the library yardstick, used nowhere in the port: one fused call
         # for the forward; its backward returns dq, dk and dv together (so
-        # the same time stands beside both backward kernels) and is timed
-        # as forward + backward less the forward
+        # the same time stands beside all three backward kernels) and is
+        # timed as forward + backward less the forward
         lq, lk, lv = (a.transpose(1, 2).detach().requires_grad_()
                       for a in (q, k, v))
         lg = do.transpose(1, 2)
@@ -1053,20 +1129,20 @@ LONG_SAMPLES, LONG_BATCH, LONG_STEPS = 163840, 16, 5
 
 def transformer_slice(card: str) -> dict:
     """transformer_fast through the training CLI under each attn_impl and
-    at the long context, then through `extract_features`; returns the launch
-    counts of the `flash16` run."""
+    at the long context, then through `extract_features`; returns each
+    attention kernel's launch count in the 10-step run that has it on its
+    path (`flash16`: forward and one-pass backward; `flash`: dQ, dK/dV)."""
     layers = presets.transformer_fast().model.ar.num_layers
     on_path = {k: 1 for k in HEADS_KERNELS}
-    counts = None
-    for impl in ("flash16", "flash", "xla"):
+    counts = {}
+    for impl, kernels in ATTN_ON_PATH.items():
         extra = [] if impl == "xla" else ["--set",
                                           f"model.ar.attn_impl={impl}"]
-        per_step = dict(on_path)
-        if impl != "xla":  # no attention kernel may launch under xla
-            per_step.update({k: layers for k in ATTN_KERNELS})
         run = train_cli_run(f"attn_impl={impl}", "transformer_fast", extra,
-                            TRAIN_STEPS, per_step)
-        counts = counts or run
+                            TRAIN_STEPS,
+                            {**on_path, **{k: layers for k in kernels}})
+        # each kernel's count from the first run that has it on its path
+        counts.update({k: run[k] for k in kernels if k not in counts})
     with tempfile.TemporaryDirectory() as corpus:
         # the CLI's own synthetic files hold 4 s, a long snippet 10.24 s
         generate_synthetic_corpus(corpus, num_speakers=LONG_BATCH,
@@ -1077,7 +1153,7 @@ def transformer_slice(card: str) -> dict:
             ["--data", corpus, "--snippet-samples", str(LONG_SAMPLES),
              "--batch-size", str(LONG_BATCH), "--set",
              "model.ar.attn_impl=flash16"], LONG_STEPS,
-            {**on_path, **{k: layers for k in ATTN_KERNELS}})
+            {**on_path, **{k: layers for k in ATTN_ON_PATH["flash16"]}})
 
     cfg = apply_overrides(presets.transformer_fast(),
                           ["model.ar.attn_impl=flash16"])
@@ -1441,6 +1517,8 @@ def main() -> None:
             "cpc_tpu/ops/infonce_allsteps_pallas.py:100"),
         "flash_attention_forward": ("flash_attention.cu",
                                     "cpc_tpu/ops/attention_pallas.py:65"),
+        "flash_attention_backward": ("flash_attention.cu",
+                                     "cpc_tpu/ops/attention_pallas.py:118"),
         "flash_attention_dq": ("flash_attention.cu",
                                "cpc_tpu/ops/attention_pallas.py:118"),
         "flash_attention_dkv": ("flash_attention.cu",

@@ -15,7 +15,12 @@ c (B, T, d_ar), strictly causal.
     Pallas kernel.
   * 'flash' | 'flash16': `ops.attention_cuda.flash_causal_mha`, the
     hand-written CUDA kernels for a CUDA tensor and their plain versions
-    for a CPU tensor, with the post-softmax products fed fp32 | bf16. No
+    for a CPU tensor, with the post-softmax products fed fp32 | bf16. On
+    the card a bf16 model under 'flash16' runs the tiled forward kernel
+    (one block a head up to T = 128) and the one-pass backward kernel (dq,
+    dk and dv from one sweep), each once a layer; under 'flash', and an
+    fp32 model under either, their own forward and the pair of dQ and
+    dK/dV kernels (`ops.attention_cuda.attention_route` names them). No
     dropout (the kernels have none).
   * 'ring' | 'zigzag' (context parallelism) are not ported: ROADMAP.md §A13.
 

@@ -131,6 +131,9 @@ def load_library() -> ctypes.CDLL:
         + [ptr],
         "gru_scan_max_hidden": [],
         "flash_attn_fwd": operand * 3 + [ptr] * 2 + attn_tail,
+        "flash_attn_bwd": operand * 4 + [ptr] * 6 + [i32] + attn_tail,
+        "flash_attn_empty": [i32] * 4 + [ptr],
+        "flash_attn_launch_shape": [i32] * 6 + [ptr],
         "flash_attn_dq": operand * 4 + [ptr] * 3 + attn_tail,
         "flash_attn_dkv": operand * 4 + [ptr] * 4 + attn_tail,
         "conv_pyramid_layer": [ptr] * 4 + [i32] * 10 + [ptr],

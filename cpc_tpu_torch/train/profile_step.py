@@ -56,6 +56,7 @@ STAGES = (
     ("all-steps InfoNCE backward dP kernel", ("allsteps_dp",)),
     ("all-steps InfoNCE backward dZ kernel", ("allsteps_dz",)),
     ("flash attention forward kernel", ("flash_fwd",)),
+    ("flash attention one-pass backward kernels (flash16)", ("flash_bwd",)),
     ("flash attention backward dQ kernel", ("flash_dq",)),
     ("flash attention backward dK/dV kernel", ("flash_dkv",)),
     ("conv pyramid forward kernels (encoder.use_pallas)", ("pyramid_",)),

@@ -2,7 +2,8 @@
 the same CUDA tensors: the GRU recurrence forward and backward, the fused
 heads + InfoNCE forward and backward, and the same-step and all-steps
 InfoNCE on materialized predictions, forward and backward, and the causal
-flash attention forward, dQ and dK/dV, and the conv encoder's pyramid
+flash attention forward, one-pass backward, dQ and dK/dV, and the conv
+encoder's pyramid
 forward; then the extraction slice and a training step of each loss path,
 of the transformer gar and of the `encoder.use_pallas` route on the card
 against the same on the CPU.
@@ -21,8 +22,11 @@ import torch
 from cpc_tpu_torch import CPCModel, extract_features, presets
 from cpc_tpu_torch.config import (ArConfig, EncoderConfig, LossConfig,
                                   ModelConfig, apply_overrides)
+from cpc_tpu_torch.ops import attention_cuda
 from cpc_tpu_torch.ops.attention_cuda import (
-    flash_attention_dkv, flash_attention_dkv_reference, flash_attention_dq,
+    attention_route, flash_attention_backward,
+    flash_attention_backward_reference, flash_attention_dkv,
+    flash_attention_dkv_reference, flash_attention_dq,
     flash_attention_dq_reference, flash_attention_forward,
     flash_attention_forward_reference, flash_causal_mha,
     flash_causal_mha_backward_reference, row_dot)
@@ -376,8 +380,8 @@ ATTN_MODES = {"bf16_flash16": (torch.bfloat16, "bfloat16"),
               "bf16_flash": (torch.bfloat16, "float32"),
               "fp32_flash": (torch.float32, "float32"),
               "fp32_flash16": (torch.float32, "bfloat16")}
-ATTN_KERNELS = (flash_attention_forward, flash_attention_dq,
-                flash_attention_dkv)
+ATTN_KERNELS = (flash_attention_forward, flash_attention_backward,
+                flash_attention_dq, flash_attention_dkv)
 
 
 def _attn_inputs(B, T, H, Dh, dtype, seed=0):
@@ -412,7 +416,9 @@ def test_attention_kernels_match_plain(B, T, H, Dh, mode):
     r_dq = flash_attention_dq_reference(*args)
     r_dk, r_dv = flash_attention_dkv_reference(*args)
     torch.cuda.synchronize()
-    assert [fn.launches for fn in ATTN_KERNELS] == [n + 1 for n in before]
+    # the forward and the pair's two kernels once each, in every mode
+    assert [fn.launches for fn in ATTN_KERNELS] == \
+        [before[0] + 1, before[1], before[2] + 1, before[3] + 1]
     for a, b in ((dq, r_dq), (dk, r_dk), (dv, r_dv)):
         assert a.dtype == dtype and a.shape == q.shape and a.is_contiguous()
         assert bool(torch.isfinite(a.float()).all())
@@ -421,6 +427,141 @@ def test_attention_kernels_match_plain(B, T, H, Dh, mode):
     assert torch.equal(dq, flash_attention_dq(*args))
     dk2, dv2 = flash_attention_dkv(*args)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    # the whole backward on the route the shape takes: the one-pass kernel
+    # once, or the pair's kernels once more each
+    route = attention_route(B, T, H, Dh, dtype, p_dtype)
+    before = [fn.launches for fn in ATTN_KERNELS]
+    got = flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    one_pass = route.backward != "pair"
+    assert one_pass == (mode == "bf16_flash16" and Dh in (16, 32, 64))
+    assert [fn.launches for fn in ATTN_KERNELS] == \
+        [before[0], before[1] + one_pass, before[2] + (not one_pass),
+         before[3] + (not one_pass)]
+    for a, b in zip(got, (r_dq, r_dk, r_dv)):
+        assert a.dtype == dtype and a.shape == q.shape and a.is_contiguous()
+        assert _rel(a, b) <= tol
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, flash_attention_backward(*args)))
+
+
+# the one-pass backward's routes: whatever the chooser would take, the
+# head-resident kernel (where the head's dQ fits a block), and 2 or 4 groups
+BACKWARD_ROUTES = {"chosen": {}, "resident": {"_RESIDENT_MIN_HEADS": 1},
+                   "split_2": {"_RESIDENT_MIN_HEADS": 1 << 30,
+                               "_MAX_GROUPS": 2},
+                   "split_4": {"_RESIDENT_MIN_HEADS": 1 << 30}}
+ONE_PASS_SHAPES = [s for s in ATTN_SHAPES if s[3] in (16, 32, 64)] + [
+    (3, 64, 2, 32), (3, 65, 2, 16), (2, 129, 3, 64), (1, 1024, 2, 64),
+    (2, 1024, 2, 16), (1, 700, 3, 32)]
+
+
+@pytest.mark.parametrize("route", sorted(BACKWARD_ROUTES))
+@pytest.mark.parametrize("B,T,H,Dh", ONE_PASS_SHAPES)
+def test_one_pass_backward_matches_plain(B, T, H, Dh, route, monkeypatch):
+    for name, value in BACKWARD_ROUTES[route].items():
+        monkeypatch.setattr(attention_cuda, name, value)
+    took = attention_route(B, T, H, Dh, torch.bfloat16, "bfloat16")
+    assert took.backward.startswith("one_pass")
+    if route.startswith("split") and T > 128:
+        assert took.backward == "one_pass_split" and took.groups >= 2
+    q, k, v, do = _attn_inputs(B, T, H, Dh, torch.bfloat16, seed=3)
+    scale = Dh ** -0.5
+    r_o, r_lse = flash_attention_forward_reference(q, k, v, scale, "bfloat16")
+    args = (q, k, v, do, r_lse, row_dot(do, r_o), scale, "bfloat16")
+    before = [fn.launches for fn in ATTN_KERNELS]
+    got = flash_attention_backward(*args)
+    again = flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in ATTN_KERNELS] == \
+        [before[0], before[1] + 2, before[2], before[3]]
+    for a, b in zip(got, flash_attention_backward_reference(*args)):
+        assert a.dtype == torch.bfloat16 and a.is_contiguous()
+        assert bool(torch.isfinite(a.float()).all())
+        assert _rel(a, b) <= 1e-2
+    # the groups' partial sums are added in a fixed order
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_one_pass_backward_reads_strided_heads():
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(rng.standard_normal((3, 150, 3, 4, 32))
+                           ).to("cuda", torch.bfloat16)
+    q, k, v = qkv.unbind(2)  # slices of one fused projection
+    do = torch.from_numpy(rng.standard_normal((3, 150, 2, 4, 32))
+                          ).to("cuda", torch.bfloat16)[:, :, 1]
+    assert not q.is_contiguous() and not do.is_contiguous()
+    r_o, r_lse = flash_attention_forward_reference(q, k, v, 0.2, "bfloat16")
+    args = (q, k, v, do, r_lse, row_dot(do, r_o), 0.2, "bfloat16")
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(*args)
+    assert flash_attention_backward.launches == before + 1
+    for a, b in zip(got, flash_attention_backward_reference(*args)):
+        assert a.is_contiguous() and _rel(a, b) <= 1e-2
+
+
+def test_one_pass_backward_gives_way_to_the_pair_on_unaligned_rows():
+    # a view that starts 8 bytes into a row: no 16-byte copies
+    wide = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, 2, 70, 3, 36))).to("cuda", torch.bfloat16)
+    q, k, v, do = (t[..., 4:] for t in wide)
+    assert q.data_ptr() % 16 == 8
+    r_o, r_lse = flash_attention_forward_reference(q, k, v, 0.2, "bfloat16")
+    args = (q, k, v, do, r_lse, row_dot(do, r_o), 0.2, "bfloat16")
+    before = [fn.launches for fn in ATTN_KERNELS]
+    got = flash_attention_backward(*args)
+    assert [fn.launches for fn in ATTN_KERNELS] == \
+        [before[0], before[1], before[2] + 1, before[3] + 1]
+    for a, b in zip(got, flash_attention_backward_reference(*args)):
+        assert _rel(a, b) <= 1e-2
+
+
+# the forward's switch: head-resident (one block a head) up to T = 128,
+# tiled beyond; both take the row's max before scaling and raise on a scale
+# that is not positive, which the fp32-P forward takes
+@pytest.mark.parametrize("scale", [None, -0.3])
+@pytest.mark.parametrize("B,T,H,Dh", [
+    (3, 127, 2, 32), (3, 128, 2, 32), (3, 129, 2, 32), (2, 64, 2, 16),
+    (2, 65, 3, 64), (1, 1024, 2, 64), (2, 1000, 2, 16), (2, 1, 1, 32)])
+def test_forward_routes_match_plain(B, T, H, Dh, scale):
+    route = attention_route(B, T, H, Dh, torch.bfloat16, "bfloat16")
+    assert route.forward == ("resident" if T <= 128 else "tiled")
+    q, k, v, _ = _attn_inputs(B, T, H, Dh, torch.bfloat16, seed=4)
+    p_dtype = "bfloat16"
+    before = flash_attention_forward.launches
+    if scale is not None:
+        with pytest.raises(ValueError, match="scale must be positive"):
+            flash_attention_forward(q, k, v, scale, p_dtype)
+        assert flash_attention_forward.launches == before
+        p_dtype = "float32"
+    scale = Dh ** -0.5 if scale is None else scale
+    o, lse = flash_attention_forward(q, k, v, scale, p_dtype)
+    r_o, r_lse = flash_attention_forward_reference(q, k, v, scale, p_dtype)
+    torch.cuda.synchronize()
+    assert flash_attention_forward.launches == before + 1
+    assert (lse - r_lse).abs().max().item() <= 1e-4
+    assert _rel(o, r_o) <= 1e-2
+
+
+# the launches the library makes: the forward's rows a block on both sides
+# of its switch, and the one-pass backward's shared memory, which
+# `attention_route` counts for itself to choose between its routes
+@pytest.mark.parametrize("Dh", [16, 32, 64])
+@pytest.mark.parametrize("T", [100, 128, 129, 1024])
+def test_launch_shape_is_what_the_route_assumes(T, Dh):
+    B, H = 3, 2
+    rows = 128 if T <= 128 else 64
+    blocks, threads, smem = attention_cuda.launch_shape("forward", B, T, H,
+                                                        Dh)
+    assert (blocks, threads) == (B * H * -(-T // rows), 2 * rows)
+    assert smem == (rows + 3 * 2 * 64) * (Dh + 8) * 2
+    for groups in (0, 2):
+        if groups > -(-T // 128) or attention_cuda.one_pass_smem(
+                T, Dh, resident=not groups) > attention_cuda._SMEM_LIMIT:
+            continue
+        assert attention_cuda.launch_shape("backward", B, T, H, Dh, groups) \
+            == (B * H * max(groups, 1), 256,
+                attention_cuda.one_pass_smem(T, Dh, resident=not groups))
 
 
 @pytest.mark.parametrize("mode", ["bf16_flash16", "fp32_flash"])
@@ -485,9 +626,12 @@ def test_transformer_train_step_on_card_matches_cpu(impl):
         steps = make_step_fns(cfg, model)
         metrics.append([steps.train_step(batch.to(device)) for _ in range(2)])
         models.append(model)
-    per_kernel = 0 if impl == "xla" else 2 * cfg.model.ar.num_layers
+    # two steps of an fp32 model: its backward is the pair of kernels (the
+    # one-pass kernel takes bf16 inputs)
+    n = 0 if impl == "xla" else 2 * cfg.model.ar.num_layers
+    per_kernel = (n, 0, n, n)
     assert [fn.launches for fn in ATTN_KERNELS] == \
-        [n + per_kernel for n in before]
+        [a + b for a, b in zip(before, per_kernel)]
     # fp32 model; under flash16 the bf16 P is rounded relative to the
     # running max on the card and to the row's max on the CPU
     rtol, atol = (1e-4, 1e-5) if impl != "flash16" else (2e-3, 1e-4)
