@@ -29,12 +29,20 @@ Phases, in order; any failure exits non-zero:
    tensors: the GRU backward at the slice's (128, 64, 256) and at
    (7, 3, 40), the fused heads + InfoNCE forward and backward at the
    slice's (T, B, C, K, D) = (128, 64, 64, 12, 512) and at (20, 3, 6, 3, 40)
-   with shift 3, each in bf16 and fp32 (the GRU backward also at phase 3's
-   two extra shapes, and twice for bit-identical results); then kernel and
-   plain times at the slice's shape in bf16, with torch.nn.GRU's backward
-   (cuDNN) beside the GRU backward as a yardstick only, and the GRU
-   backward's three stages apart (gates of all steps, reversed recurrence,
-   dwh/dbh reduction; from torch.profiler);
+   with shift 3, each in bf16 and fp32, and in bf16 at transformer_fast's
+   long context (1024, 16, 16, 12, 512) and at a ragged (16, 24, 70, 4, 64)
+   with shift 5 (each case's route, tensor cores for bf16 and SIMT for
+   fp32, checked against `heads_route`; the heads backward held relative to
+   the largest entry of plain, and on its share of entries whose bf16
+   rounding differs from plain's; the heads backward and the GRU backward,
+   also at phase 3's two extra shapes, twice for bit-identical results);
+   then kernel and plain times at the slice's shape in bf16, with
+   torch.nn.GRU's backward (cuDNN) beside the GRU backward as a yardstick
+   only, and the GRU backward's three stages apart (gates of all steps,
+   reversed recurrence, dwh/dbh reduction; from torch.profiler); and the
+   heads kernels at both full-width shapes over a CUDA-graph replay,
+   beside the SIMT kernels at the same inputs (the route forced), the plain
+   versions and the bound;
 6. the training slice through its entry point:
    `cpc_tpu_torch.train.cli.main` trains `tpu_fast` at full width on the
    synthetic corpus for 10 steps; checks that metrics.jsonl is finite, that
@@ -123,7 +131,7 @@ from cpc_tpu_torch import CPCModel, extract_features, presets
 from cpc_tpu_torch.config import apply_overrides
 from cpc_tpu_torch.data.loader import device_prepare
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
-from cpc_tpu_torch.ops import _build, attention_cuda, gru_cuda
+from cpc_tpu_torch.ops import _build, attention_cuda, gru_cuda, infonce_fused
 from cpc_tpu_torch.ops.attention_cuda import (
     _FlashPlain, attention_route, flash_attention_backward,
     flash_attention_backward_reference, flash_attention_dkv,
@@ -154,7 +162,7 @@ from cpc_tpu_torch.ops.infonce_fused import (_HeadsNllPlain,
                                              heads_nll_backward_reference,
                                              heads_nll_forward,
                                              heads_nll_reference,
-                                             reduce_heads_nll)
+                                             heads_route, reduce_heads_nll)
 from cpc_tpu_torch.train import cli as train_cli
 from cpc_tpu_torch.train.train_step import (global_norm, init_state,
                                             make_step_fns)
@@ -336,9 +344,28 @@ MISMATCH_TOL = 1e-4   # share of rows whose argmax may differ: near-ties
 GRU_BWD_CASES = [(SLICE_SHAPE, torch.bfloat16), (SLICE_SHAPE, torch.float32),
                  ((7, 3, 40), torch.bfloat16), ((7, 3, 40), torch.float32)]
 HEADS_SLICE = (128, 64, 64, 12, 512, 0)  # T, B, C, K, D, shift of tpu_fast
+# transformer_fast at its long context: T = 1 024, batch 16, C = B
+HEADS_LONG = (1024, 16, 16, 12, 512, 0)
 HEADS_CASES = [(HEADS_SLICE, torch.bfloat16), (HEADS_SLICE, torch.float32),
                ((20, 3, 6, 3, 40, 3), torch.bfloat16),
-               ((20, 3, 6, 3, 40, 3), torch.float32)]
+               ((20, 3, 6, 3, 40, 3), torch.float32),
+               (HEADS_LONG, torch.bfloat16),
+               # C > 64 and no multiple of 8: a ragged second column tile
+               ((16, 24, 70, 4, 64, 5), torch.bfloat16)]
+# the route each wire dtype takes at these shapes (D a multiple of 8)
+HEADS_ROUTES = {torch.bfloat16: "mma", torch.float32: "simt"}
+# The heads backward's dz and dp are held to REL_TOL relative to max |plain|
+# (not max(1, .): the cotangent is drawn at 1/(T*B), so dp and dz lie far
+# below 1), and on the share of entries whose bf16 rounding differs from
+# plain's (dp is bf16; dz is rounded to bf16 on its way into the encoder).
+# Readings at tpu_fast, H100 (PERF.md): delta in 3 bf16 terms, as built, dz
+# 1.7e-6 of max, flips dz 3.6e-4, dp 1.2e-4; the SIMT kernels 1.7e-6,
+# 3.4e-4, 0; delta in 2 terms 4.9e-6, 2.1e-3, 8.3e-4; delta rounded once to
+# bf16 dz 2.4e-3 of max. Each limit lies between the first two and the last
+# two, so a lower-precision or zeroed output fails.
+HEADS_FLIP_TOL = {"dz": 1e-3, "dp": 3e-4}
+# a share is held over at least this many entries (else it is a few flips)
+FLIP_MIN_ENTRIES = 65536
 
 
 def rel_err(got, want) -> float:
@@ -346,6 +373,17 @@ def rel_err(got, want) -> float:
     want = want.float()
     return ((got.float() - want).abs().max()
             / want.abs().max().clamp(min=1.0)).item()
+
+
+def rel_to_max(got, want) -> float:
+    """max |got - want| / max |want|."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def bf16_flips(got, want) -> float:
+    """The share of entries whose bf16 rounding differs."""
+    return (got.bfloat16() != want.bfloat16()).float().mean().item()
 
 
 def heads_inputs(T, B, C, K, D, dtype, seed):
@@ -358,6 +396,60 @@ def heads_inputs(T, B, C, K, D, dtype, seed):
     def dev(a, dt):
         return torch.from_numpy(a).to("cuda", dt).contiguous()
     return dev(p, dtype), dev(z, dtype), dev(g, torch.float32)
+
+
+def heads_checks(errs: dict) -> None:
+    """The fused heads kernels against their plain versions at
+    `HEADS_CASES`; raises on the first disagreement and keeps the largest
+    absolute errors in `errs`."""
+    for n, ((T, B, C, K, D, shift), dtype) in enumerate(HEADS_CASES):
+        route = heads_route(T, B, C, K, D, dtype)
+        check(route == HEADS_ROUTES[dtype],
+              f"heads {(T, B, C, K, D)} {dtype} takes {route}")
+        p, z, g = heads_inputs(T, B, C, K, D, dtype, seed=30 + n)
+        nll, cor, lse = heads_nll_forward(p, z, shift, K)
+        r_nll, r_cor, r_lse = heads_nll_reference(p, z, shift, K)
+        torch.cuda.synchronize()
+        err = max((nll - r_nll).abs().max().item(),
+                  (lse - r_lse).abs().max().item())
+        miss = (cor != r_cor).float().mean().item()
+        errs["heads_nll_forward"] = max(errs["heads_nll_forward"], err)
+        print(f"heads_nll_forward vs plain {(T, B, C, K, D)} shift "
+              f"{shift} {str(dtype)[6:]} ({route} route): nll/lse max "
+              f"abs err {err:.3e} "
+              f"(tol {NLL_TOL:.0e}), argmax mismatch share {miss:.2e} "
+              f"(tol {MISMATCH_TOL:.0e})", flush=True)
+        check(err <= NLL_TOL and miss <= MISMATCH_TOL,
+              f"heads fwd error {err}, mismatch {miss}")
+        check(bool(torch.isfinite(nll).all()), "heads fwd non-finite")
+        dz, dp = heads_nll_backward(g, r_lse, p, z, shift, K)
+        again = heads_nll_backward(g, r_lse, p, z, shift, K)
+        r_dz, r_dp = heads_nll_backward_reference(g, r_lse, p, z, shift, K)
+        torch.cuda.synchronize()
+        for name, a, a2, b, tol in (
+                ("dz", dz, again[0], r_dz, REL_TOL[torch.float32]),
+                ("dp", dp, again[1], r_dp, REL_TOL[dtype])):
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"heads bwd {name}: {a.dtype} {tuple(a.shape)}")
+            check(torch.equal(a, a2), f"heads bwd {(T, B, C, K, D)} "
+                  f"{name} differs between two runs")
+            err = rel_to_max(a, b)
+            flips = bf16_flips(a, b)
+            held = a.numel() >= FLIP_MIN_ENTRIES
+            flip_tol = HEADS_FLIP_TOL[name]
+            abs_err = (a.float() - b.float()).abs().max().item()
+            errs["heads_nll_backward"] = max(errs["heads_nll_backward"],
+                                             abs_err)
+            print(f"heads_nll_backward vs plain {(T, B, C, K, D)} "
+                  f"{str(dtype)[6:]} ({route} route) {name}: max abs err "
+                  f"{abs_err:.3e}, relative to max |plain| {err:.3e} "
+                  f"(tol {tol:.0e}), bf16 flips {flips:.3e} "
+                  + (f"(tol {flip_tol:.0e})" if held else
+                     f"(not held: {a.numel()} entries)")
+                  + "; two runs bit-identical", flush=True)
+            check(err <= tol, f"heads bwd {name} error {err} > {tol}")
+            check(not held or flips <= flip_tol,
+                  f"heads bwd {name} bf16 flips {flips} > {flip_tol}")
 
 
 def phase5_kernels(card: str) -> dict:
@@ -399,38 +491,7 @@ def phase5_kernels(card: str) -> dict:
                       flush=True)
                 check(err <= tol, f"gru bwd {name} error {err} > {tol}")
 
-        for n, ((T, B, C, K, D, shift), dtype) in enumerate(HEADS_CASES):
-            p, z, g = heads_inputs(T, B, C, K, D, dtype, seed=30 + n)
-            nll, cor, lse = heads_nll_forward(p, z, shift, K)
-            r_nll, r_cor, r_lse = heads_nll_reference(p, z, shift, K)
-            torch.cuda.synchronize()
-            err = max((nll - r_nll).abs().max().item(),
-                      (lse - r_lse).abs().max().item())
-            miss = (cor != r_cor).float().mean().item()
-            errs["heads_nll_forward"] = max(errs["heads_nll_forward"], err)
-            print(f"heads_nll_forward vs plain {(T, B, C, K, D)} shift "
-                  f"{shift} {str(dtype)[6:]}: nll/lse max abs err {err:.3e} "
-                  f"(tol {NLL_TOL:.0e}), argmax mismatch share {miss:.2e} "
-                  f"(tol {MISMATCH_TOL:.0e})", flush=True)
-            check(err <= NLL_TOL and miss <= MISMATCH_TOL,
-                  f"heads fwd error {err}, mismatch {miss}")
-            check(bool(torch.isfinite(nll).all()), "heads fwd non-finite")
-            dz, dp = heads_nll_backward(g, r_lse, p, z, shift, K)
-            r_dz, r_dp = heads_nll_backward_reference(g, r_lse, p, z, shift, K)
-            torch.cuda.synchronize()
-            for name, a, b, tol in (("dz", dz, r_dz, REL_TOL[torch.float32]),
-                                    ("dp", dp, r_dp, REL_TOL[dtype])):
-                check(a.dtype == b.dtype and a.shape == b.shape,
-                      f"heads bwd {name}: {a.dtype} {tuple(a.shape)}")
-                err = rel_err(a, b)
-                abs_err = (a.float() - b.float()).abs().max().item()
-                errs["heads_nll_backward"] = max(errs["heads_nll_backward"],
-                                                 abs_err)
-                print(f"heads_nll_backward vs plain {(T, B, C, K, D)} "
-                      f"{str(dtype)[6:]} {name}: max abs err {abs_err:.3e}, "
-                      f"relative to max(1, max |plain|) {err:.3e} "
-                      f"(tol {tol:.0e})", flush=True)
-                check(err <= tol, f"heads bwd {name} error {err} > {tol}")
+        heads_checks(errs)
 
         T, B, H = SLICE_SHAPE
         xp, wh, bh, h0 = gru_inputs(T, B, H, torch.bfloat16, seed=10)
@@ -451,21 +512,10 @@ def phase5_kernels(card: str) -> dict:
             streamed_ms = cuda_ms(lambda: gru_scan_backward(*args), reps=5)
         fp32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
         fp32_ms = cuda_ms(lambda: gru_scan_backward(*fp32))
-        T, B, C, K, D, shift = HEADS_SLICE
-        p, z, g = heads_inputs(T, B, C, K, D, torch.bfloat16, seed=30)
-        nll, cor, lse = heads_nll_reference(p, z, shift, K)
-        scores = 2 * T * K * B * C * D
-        out["heads_nll_forward"] = {
-            "ms": cuda_ms(lambda: heads_nll_forward(p, z, shift, K)),
-            "plain_ms": cuda_ms(lambda: heads_nll_reference(p, z, shift, K)),
-            "library_ms": None, **bound([p, z, nll, cor, lse], scores)}
-        outs = heads_nll_backward(g, lse, p, z, shift, K)
-        out["heads_nll_backward"] = {
-            "ms": cuda_ms(lambda: heads_nll_backward(g, lse, p, z, shift, K)),
-            "plain_ms": cuda_ms(lambda: heads_nll_backward_reference(
-                g, lse, p, z, shift, K)),
-            # the scores again, dz and dp
-            "library_ms": None, **bound([g, lse, p, z, *outs], 3 * scores)}
+        heads_times = {shape: heads_times_ms(shape)
+                       for shape in (HEADS_SLICE, HEADS_LONG)}
+        for name in HEADS_KERNELS:
+            out[name] = dict(heads_times[HEADS_SLICE][name], library_ms=None)
     stages = gru_backward_stages_ms(args)
     m = out["gru_scan_backward"]
     print(f"time gru_scan_backward {SLICE_SHAPE} bf16 on {card}, its three "
@@ -478,6 +528,13 @@ def phase5_kernels(card: str) -> dict:
           f"cluster; {other_rows} rows {rows_ms:.4f} ms; fp32 {fp32_ms:.4f} "
           f"ms); the streamed kernels at this shape {streamed_ms:.4f} ms",
           flush=True)
+    for (T, B, C, K, D, _), times in heads_times.items():
+        for name, m in times.items():
+            print(f"time {name} {(T, B, C, K, D)} bf16 on {card}: "
+                  f"tensor-core kernel {m['ms']:.4f} ms [SIMT kernels of the "
+                  f"same call {m['simt_ms']:.4f} ms], "
+                  f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} "
+                  f"ms by {m['bound_by']}", flush=True)
     out["gru_scan_backward"]["library_ms"] = cudnn_gru_backward_ms()
     for name, m in out.items():
         m["max_abs_err"] = errs[name]
@@ -487,6 +544,40 @@ def phase5_kernels(card: str) -> dict:
               f"{m['library_ms'] and round(m['library_ms'], 4)} ms",
               flush=True)
     return out
+
+
+def heads_times_ms(shape) -> dict:
+    """Times of the fused heads kernels at `shape` in bf16: the tensor-core
+    route, the SIMT kernels of the same inputs (the route forced), the plain
+    versions and the bound; the kernels' from the replay of a CUDA graph of
+    10 calls."""
+    T, B, C, K, D, shift = shape
+    p, z, g = heads_inputs(T, B, C, K, D, torch.bfloat16, seed=30)
+    nll, cor, lse = heads_nll_reference(p, z, shift, K)
+    outs = heads_nll_backward_reference(g, lse, p, z, shift, K)
+    on_card = dict(reps=10, inner=10, graph=True)
+    scores = 2 * T * K * B * C * D
+
+    def fwd():
+        return heads_nll_forward(p, z, shift, K)
+
+    def bwd():
+        return heads_nll_backward(g, lse, p, z, shift, K)
+    times = {"heads_nll_forward": {
+        "plain_ms": cuda_ms(lambda: heads_nll_reference(p, z, shift, K),
+                            reps=5),
+        **bound([p, z, nll, cor, lse], scores)},
+        "heads_nll_backward": {
+        "plain_ms": cuda_ms(lambda: heads_nll_backward_reference(
+            g, lse, p, z, shift, K), reps=5),
+        # the scores again, dz and dp
+        **bound([g, lse, p, z, *outs], 3 * scores)}}
+    for name, fn in (("heads_nll_forward", fwd), ("heads_nll_backward", bwd)):
+        m = times[name]
+        m["ms"] = cuda_ms(fn, **on_card)
+        with forced("_MMA_DTYPES", (), module=infonce_fused):
+            m["simt_ms"] = cuda_ms(fn, **on_card)
+    return times
 
 
 BACKWARD_STAGES = {"gates": ("gru_gates_kernel",),

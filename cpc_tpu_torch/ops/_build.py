@@ -119,8 +119,8 @@ def load_library() -> ctypes.CDLL:
         "gru_scan_fwd": [ptr] * 5 + [i32] * 6 + [ptr],
         "gru_scan_bwd": [ptr] * 14 + [i32] * 7 + [ptr],
         "gru_exchange_probe": [ptr] + [i32] * 4 + [ptr],
-        "heads_nll_fwd": [ptr] * 5 + [i32] * 8 + [ptr],
-        "heads_nll_bwd": [ptr] * 7 + [i32] * 9 + [ptr],
+        "heads_nll_fwd": [ptr] * 5 + [i32] * 9 + [ptr],
+        "heads_nll_bwd": [ptr] * 7 + [i32] * 10 + [ptr],
         "same_step_nll_fwd": [ptr] * 5 + [i32] * 6 + [i64] * 4 + [i32] * 2
         + [ptr],
         "same_step_nll_bwd": [ptr] * 7 + [i32] * 6 + [i64] * 4 + [i32] * 2

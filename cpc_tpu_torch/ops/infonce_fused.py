@@ -27,9 +27,12 @@ does the same.
 Dispatch is by the device of `c`: a CPU tensor goes through
 `_HeadsNllPlain` (`heads_nll_reference`, `heads_nll_backward_reference`), a
 CUDA tensor through `_HeadsNllCuda`, whose two halves are the kernels, which
-run or raise. The kernels have no bound on C (columns are swept in tiles),
-so the JAX package's v5e envelope (`MEASURED_C_ENVELOPE`) has no
-counterpart here.
+run or raise. `heads_route` names the kernels a CUDA tensor runs: "mma"
+(bf16, tensor cores; the backward one launch with no scratch) or "simt"
+(fp32, and bf16 that 16-byte copies do not fit; the backward three launches
+through an fp32 scratch of delta). The kernels have no bound on C (columns
+are swept in tiles), so the JAX package's v5e envelope
+(`MEASURED_C_ENVELOPE`) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -126,6 +129,38 @@ def _check(p: torch.Tensor, z_tm: torch.Tensor, K: int, shift: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+# the wire dtypes the tensor-core kernels take
+_MMA_DTYPES = (torch.bfloat16,)
+_ROUTE_CODES = {"simt": 0, "mma": 1}
+
+
+def heads_route(T: int, B: int, C: int, K: int, D: int, dtype: torch.dtype,
+                aligned: bool = True) -> str:
+    """Names the kernels `heads_nll_forward` and `heads_nll_backward` launch
+    on the card for p (T, B, K*D) and z_tm (T, C, D) of `dtype`. Pure
+    Python.
+
+    "mma": bf16 with D a multiple of 8 and both operands 16-byte aligned
+    (`aligned`), the training path: tensor-core products, the backward one
+    launch with no scratch. "simt": everything else, the fp32 wire (the
+    parity configuration) and bf16 shapes that 16-byte copies do not fit:
+    SIMT fp32 products, the backward three launches. Raises on inputs that
+    no kernel takes."""
+    if dtype not in WIRE_DTYPES:
+        raise TypeError(f"p and z_tm must be one of {WIRE_DTYPES}, got "
+                        f"{dtype}")
+    if min(T, B, C, K, D) < 1:
+        raise ValueError(f"empty shape (T, B, C, K, D) = {(T, B, C, K, D)}")
+    mma = dtype in _MMA_DTYPES and D % 8 == 0 and aligned
+    return "mma" if mma else "simt"
+
+
+def _route(p: torch.Tensor, z_tm: torch.Tensor, K: int) -> str:
+    T, B, KD = p.shape
+    aligned = p.data_ptr() % 16 == 0 and z_tm.data_ptr() % 16 == 0
+    return heads_route(T, B, z_tm.shape[1], K, KD // K, p.dtype, aligned)
+
+
 def _launch_fwd(p, z_tm, shift, K):
     _check(p, z_tm, K, shift)
     lib = load_library()
@@ -136,8 +171,8 @@ def _launch_fwd(p, z_tm, shift, K):
     stream = torch.cuda.current_stream(p.device)
     err = lib.heads_nll_fwd(
         p.data_ptr(), z_tm.data_ptr(), *(o.data_ptr() for o in outs), T, B,
-        C, K, KD // K, shift, int(p.dtype == torch.bfloat16), p.device.index,
-        stream.cuda_stream)
+        C, K, KD // K, shift, int(p.dtype == torch.bfloat16),
+        _ROUTE_CODES[_route(p, z_tm, K)], p.device.index, stream.cuda_stream)
     check_launch(lib, err, "heads_nll_forward")
     heads_nll_forward.launches += 1
     return tuple(outs)
@@ -154,16 +189,21 @@ def _launch_bwd(g_nll, lse, p, z_tm, shift, K):
                              f"on {p.device}")
     lib = load_library()
     dev = p.device
-    # the scratch is freed after the launch, which is safe: the caching
-    # allocator reuses it only for work queued later on the same stream
-    delta = torch.empty((T, K, B, C), dtype=torch.float32, device=dev)
+    route = _route(p, z_tm, K)
+    # the simt route's scratch is freed after the launch, which is safe: the
+    # caching allocator reuses it only for work queued later on the same
+    # stream
+    delta = (torch.empty((T, K, B, C), dtype=torch.float32, device=dev)
+             if route == "simt" else None)
     dz = torch.empty((T, C, D), dtype=torch.float32, device=dev)
     dp = torch.empty((K, T, B, D), dtype=p.dtype, device=dev)
     stream = torch.cuda.current_stream(dev)
     err = lib.heads_nll_bwd(
         g_nll.data_ptr(), lse.data_ptr(), p.data_ptr(), z_tm.data_ptr(),
-        delta.data_ptr(), dz.data_ptr(), dp.data_ptr(), T, B, C, K, D, shift,
-        T - K, int(p.dtype == torch.bfloat16), dev.index, stream.cuda_stream)
+        None if delta is None else delta.data_ptr(), dz.data_ptr(),
+        dp.data_ptr(), T, B, C, K, D, shift, T - K,
+        int(p.dtype == torch.bfloat16), _ROUTE_CODES[route], dev.index,
+        stream.cuda_stream)
     check_launch(lib, err, "heads_nll_backward")
     heads_nll_backward.launches += 1
     return dz, dp
@@ -172,8 +212,8 @@ def _launch_bwd(g_nll, lse, p, z_tm, shift, K):
 def heads_nll_forward(p: torch.Tensor, z_tm: torch.Tensor, shift: int,
                       K: int):
     """(nll, correct, lse). CPU tensors run `heads_nll_reference`; CUDA
-    tensors run the kernel, and `heads_nll_forward.launches` counts its
-    launches."""
+    tensors run the kernel of `heads_route`, and `heads_nll_forward.launches`
+    counts its launches."""
     return on_device(p, heads_nll_reference, _launch_fwd, p, z_tm, shift, K)
 
 
@@ -181,8 +221,9 @@ def heads_nll_backward(g_nll: torch.Tensor, lse: torch.Tensor,
                        p: torch.Tensor, z_tm: torch.Tensor, shift: int,
                        K: int):
     """(dz, dp). CPU tensors run `heads_nll_backward_reference`; CUDA tensors
-    run the kernels, and `heads_nll_backward.launches` counts the
-    launches."""
+    run the kernels of `heads_route` (one launch on "mma", three on
+    "simt"), and `heads_nll_backward.launches` counts the calls that
+    launched them."""
     return on_device(p, heads_nll_backward_reference, _launch_bwd, g_nll,
                      lse, p, z_tm, shift, K)
 

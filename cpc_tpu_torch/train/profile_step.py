@@ -46,9 +46,11 @@ STAGES = (
     ("GRU backward recurrence kernel",
      ("gru_bwd_resident_kernel", "gru_scan_bwd_kernel")),
     ("GRU dwh/dbh reduction kernels", ("gru_bwd_reduce", "gru_bwd_finish")),
-    ("fused heads + InfoNCE forward kernel", ("heads_nll_fwd",)),
+    # the tensor-core route (bf16 models), then the SIMT route's kernels
+    ("fused heads + InfoNCE forward kernel",
+     ("heads_fwd_mma", "heads_nll_fwd")),
     ("fused heads + InfoNCE backward kernels",
-     ("heads_delta", "heads_dz", "heads_dp")),
+     ("heads_bwd_mma", "heads_delta", "heads_dz", "heads_dp")),
     ("same-step InfoNCE forward kernel", ("same_step_fwd",)),
     ("same-step InfoNCE backward kernels",
      ("same_step_delta", "same_step_dz", "same_step_dp")),

@@ -20,7 +20,16 @@ from cpc_tpu_torch.train.profile_step import OTHER, main, stage_of
     ("void gru_bwd_reduce_kernel<__nv_bfloat16>(...)", "GRU dwh/dbh"),
     ("gru_bwd_finish_kernel(float const*, ...)", "GRU dwh/dbh"),
     ("void heads_nll_fwd_kernel<float>(...)", "fused heads + InfoNCE forward"),
+    ("(anonymous namespace)::heads_fwd_mma_kernel(__nv_bfloat16 const*, ...)",
+     "fused heads + InfoNCE forward"),
+    ("void (anonymous namespace)::heads_bwd_mma_kernel<true>(float const*, "
+     "...)", "fused heads + InfoNCE backward"),
+    ("void (anonymous namespace)::heads_bwd_mma_kernel<false>(...)",
+     "fused heads + InfoNCE backward"),
+    ("void heads_delta_kernel<float>(...)", "fused heads + InfoNCE backward"),
     ("void heads_dz_kernel<__nv_bfloat16>(...)",
+     "fused heads + InfoNCE backward"),
+    ("void heads_dp_kernel<__nv_bfloat16>(...)",
      "fused heads + InfoNCE backward"),
     ("void same_step_fwd_kernel<__nv_bfloat16>(...)",
      "same-step InfoNCE forward"),
