@@ -57,9 +57,15 @@ Phases, in order; any failure exits non-zero:
    and the all-steps InfoNCE, forward and backward, at tpu_fast's
    (B, T, C, K, D) = (64, 128, 64, 12, 512) (all-steps: 89 088 rows against
    8 192 candidates) and at (3, 20, 6, 3, 40) with shift 3, each in bf16
-   and fp32: nll, lse, correct, dpreds, dz, and the backward twice for
-   bit-identical results; then kernel and plain times at tpu_fast's shape
-   in bf16;
+   and fp32, and in bf16 at transformer_fast's long context
+   (16, 1024, 16, 12, 512) (194 304 rows against 16 384) and at a ragged
+   (5, 37, 9, 4, 72) with shift 2 (R, N and D no multiple of a tile): nll,
+   lse, correct, dpreds, dz, the backward twice for bit-identical results,
+   and each case's all-steps route (wgmma for bf16, SIMT for fp32) against
+   `allsteps_route`; then kernel and plain times in bf16, the same-step
+   kernels at tpu_fast's shape, the all-steps kernels at both full-width
+   shapes with their achieved TFLOP/s and, as a yardstick of another
+   function, the score product alone on cuBLAS;
 9. those two paths through the entry point: `cpc_tpu_torch.train.cli.main`
    trains `tpu_fast` at full width for 10 steps with
    `--set model.loss.negatives=all_steps`, then with
@@ -148,7 +154,7 @@ from cpc_tpu_torch.ops.gru_cuda import (_GruScanPlain,
                                         gru_scan_backward_reference,
                                         gru_scan_reference)
 from cpc_tpu_torch.ops.infonce_allsteps_cuda import (
-    _AllStepsNllPlain, allsteps_nll_backward,
+    _AllStepsNllPlain, allsteps_nll_backward, allsteps_route,
     allsteps_nll_backward_reference, allsteps_nll_forward,
     allsteps_nll_reference, reduce_allsteps_nll)
 from cpc_tpu_torch.ops.infonce_cuda import (_SameStepNllPlain,
@@ -878,9 +884,16 @@ def step_vs_plain(card: str, path: str, watched_names, config="tpu_fast",
 
 # ---------------------------------------------------------------- phase 8
 LOSS_SLICE = (64, 128, 64, 12, 512, 0)  # B, T, C, K, D, shift of tpu_fast
+# transformer_fast at its long context: T = 1 024, batch 16, C = B
+LOSS_LONG = (16, 1024, 16, 12, 512, 0)
 LOSS_CASES = [(LOSS_SLICE, torch.bfloat16), (LOSS_SLICE, torch.float32),
               ((3, 20, 6, 3, 40, 3), torch.bfloat16),
-              ((3, 20, 6, 3, 40, 3), torch.float32)]
+              ((3, 20, 6, 3, 40, 3), torch.float32),
+              (LOSS_LONG, torch.bfloat16),
+              # R = 660, N = 333 and D = 72: no multiple of any tile
+              ((5, 37, 9, 4, 72, 2), torch.bfloat16)]
+# the all-steps route each wire dtype takes at these shapes (D % 8 == 0)
+ALLSTEPS_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 LOSS_KERNELS = {
     "same_step": (same_step_nll_forward, same_step_nll_reference,
                   same_step_nll_backward, same_step_nll_backward_reference),
@@ -925,6 +938,12 @@ def phase8_kernels(card: str) -> dict:
             for kind, (fwd, fwd_ref, bwd, bwd_ref) in LOSS_KERNELS.items():
                 what = f"{kind} {(B, T, C, K, D)} shift {shift} " \
                        f"{str(dtype)[6:]}"
+                if kind == "allsteps":
+                    plan = allsteps_route((T - K) * K * B, C * T, D, dtype)
+                    print(f"{what}: route {plan.route}, dZ row groups "
+                          f"{plan.groups}", flush=True)
+                    check(plan.route == ALLSTEPS_ROUTES[dtype],
+                          f"{what}: route {plan.route}")
                 nll, cor, lse = fwd(preds_v, z, shift)
                 r_nll, r_cor, r_lse = fwd_ref(preds_v, z, shift)
                 torch.cuda.synchronize()
@@ -966,35 +985,65 @@ def phase8_kernels(card: str) -> dict:
                     check(got[1][:, 0].abs().max().item() == 0.0,
                           f"{what}: dz[:, 0] is not zero")
 
-        B, T, C, K, D, shift = LOSS_SLICE
+    out = {}
+    for shape in (LOSS_SLICE, LOSS_LONG):
+        times = loss_times_ms(shape, tuple(LOSS_KERNELS) if shape ==
+                              LOSS_SLICE else ("allsteps",))
+        if shape == LOSS_SLICE:
+            out = times
+        for name, m in times.items():
+            print(f"time {name} at {shape[:5]}, bf16, on {card}: kernel "
+                  f"{m['ms']:.4f} ms = {m['tflops']:.1f} TFLOP/s, plain "
+                  f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+                  f"by {m['bound_by']}", flush=True)
+        if "product_ms" in times.get("allsteps_nll_forward", {}):
+            m = times["allsteps_nll_forward"]
+            print(f"time of the all-steps score product alone on cuBLAS "
+                  f"(torch.matmul of (R, D) and (D, N) bf16, another "
+                  f"function: a yardstick, not library_ms) at "
+                  f"{shape[:5]} on {card}: {m['product_ms']:.4f} ms = "
+                  f"{m['product_tflops']:.1f} TFLOP/s", flush=True)
+    for name, m in out.items():
+        m.update(max_abs_err=errs[name], library_ms=None)
+    return out
+
+
+def loss_times_ms(shape, kinds) -> dict:
+    """Kernel and plain times of the `kinds` of LOSS_KERNELS at `shape`
+    (B, T, C, K, D, shift) in bf16, with the bound and the achieved TFLOP/s
+    of the products the function needs (forward: the scores; backward: the
+    scores again and the two contractions); for the all-steps forward also
+    the score product alone on cuBLAS. CUDA events, medians."""
+    B, T, C, K, D, shift = shape
+    with torch.inference_mode():
         preds_v, z, gs = loss_inputs(B, T, C, K, D, torch.bfloat16, seed=40)
-        # the products, forward: same-step scores over the valid (t, k)
-        # rows, all-steps scores of R rows against N = C*T columns;
-        # backward: the scores again and the two contractions
         flops = {"same_step": 2 * (T - K) * K * B * C * D,
                  "allsteps": 2 * (T - K) * K * B * C * T * D}
         out = {}
-        for kind, (fwd, fwd_ref, bwd, bwd_ref) in LOSS_KERNELS.items():
+        for kind in kinds:
+            fwd, fwd_ref, bwd, bwd_ref = LOSS_KERNELS[kind]
             reps = 20 if kind == "same_step" else 5
             fwd_outs = fwd_ref(preds_v, z, shift)
             lse, g = fwd_outs[2], gs[kind]
+            ms = cuda_ms(lambda: fwd(preds_v, z, shift), reps=reps)
             out[f"{kind}_nll_forward"] = {
-                "ms": cuda_ms(lambda: fwd(preds_v, z, shift), reps=reps),
+                "ms": ms, "tflops": flops[kind] / ms / 1e9,
                 "plain_ms": cuda_ms(lambda: fwd_ref(preds_v, z, shift),
                                     reps=reps),
                 **bound([preds_v, z, *fwd_outs], flops[kind])}
             bwd_outs = bwd(g, lse, preds_v, z, shift)
+            ms = cuda_ms(lambda: bwd(g, lse, preds_v, z, shift), reps=reps)
             out[f"{kind}_nll_backward"] = {
-                "ms": cuda_ms(lambda: bwd(g, lse, preds_v, z, shift),
-                              reps=reps),
+                "ms": ms, "tflops": 3 * flops[kind] / ms / 1e9,
                 "plain_ms": cuda_ms(lambda: bwd_ref(g, lse, preds_v, z,
                                                     shift), reps=reps),
                 **bound([g, lse, preds_v, z, *bwd_outs], 3 * flops[kind])}
-    for name, m in out.items():
-        m.update(max_abs_err=errs[name], library_ms=None)
-        print(f"time {name} at tpu_fast's shape, bf16, on {card}: kernel "
-              f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound "
-              f"{m['bound_ms']:.4f} ms by {m['bound_by']}", flush=True)
+            if kind == "allsteps":
+                rows = preds_v.permute(1, 2, 0, 3).reshape(-1, D)
+                cols = z.reshape(-1, D)
+                ms = cuda_ms(lambda: torch.matmul(rows, cols.T), reps=reps)
+                out["allsteps_nll_forward"].update(
+                    product_ms=ms, product_tflops=flops[kind] / ms / 1e9)
     return out
 
 

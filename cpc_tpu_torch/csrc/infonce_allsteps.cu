@@ -9,8 +9,8 @@
 //
 // Inputs: preds (B, Tp, K, D), read through its batch and time strides (the
 // last axes contiguous, so it may be the window [:, :Tp] of a longer array
-// and is never transposed), and the pool z_flat (N, D), N = C*T, contiguous,
-// both in the wire dtype (bf16_t or fp32), and `shift`. Row
+// and is never transposed or copied), and the pool z_flat (N, D), N = C*T,
+// contiguous, both in the wire dtype (bf16_t or fp32), and `shift`. Row
 // r = (t*K + k)*B + i is preds[i, t, k]; there are R = Tp*K*B of them. Its
 // positive is column (shift + i)*T + t + k + 1. Scores are fp32; argmax ties
 // go to the lowest column, as jnp.argmax over the whole row.
@@ -19,46 +19,95 @@
 // K = 12, D = 512) is never stored, forward or backward: each kernel
 // recomputes the tiles it needs.
 //
-// Each kernel exists twice. The fp32 wire, which is the parity
-// configuration, and bf16 shapes that 16-byte copies do not fit, run the
-// products on the SIMT fp32 pipe through cpc::tile_mm (the kernels right
-// below). The bf16 wire of the training path runs them on the tensor cores
-// (the *_mma_kernel kernels further down, with their own note). The
-// decomposition is the same:
-//
-// FORWARD, allsteps_fwd_kernel: nll, correct, lse, each (R,) fp32. One block
-// per 64-row tile (1 392 at tpu_fast) sweeps the N columns in 64-column
-// tiles, keeping running statistics per row (cpc::RowStats). The TPU kernel
-// carried them in scratch across a sequential grid axis; here the sweep is
-// a loop inside the block.
+// FORWARD: nll, correct, lse, each (R,) fp32. A block owns a tile of rows
+// and sweeps the N columns in tiles, keeping running statistics per row
+// (cpc::RowStats). The TPU kernel carried them in scratch across a
+// sequential grid axis; here the sweep is a loop inside the block.
 //
 // BACKWARD, given g (R,) fp32 and the forward's lse:
 //   delta[r, n] = (exp(s - lse) - onehot) * g, in fp32, and with a bf16 wire
-//   rounded to bf16, as the TPU kernels round it before the second product;
-//   dpreds[r] = sum_n delta[r, n] z[n]     allsteps_dp_kernel, (B, Tp, K, D)
-//   dz[n] = sum_r delta[r, n] preds[r]     allsteps_dz_kernel, (N, D)
-// with fp32 sums; both outputs rounded once to the wire dtype. The dP
-// kernel owns a row tile and sweeps the columns; the dZ kernel owns a
-// column tile and sweeps the rows, as the TPU grid did serially into one
-// resident accumulator, so no sum crosses blocks: no atomics, and the same
-// result every run. Each keeps its output tile, 64 rows by a few 64-wide
-// chunks of D, in registers: a block recomputes one score tile, forms
-// delta, and feeds it to one product per chunk. D beyond those chunks goes
-// to more blocks (gridDim.y), each recomputing the scores. In the SIMT
-// kernels a block owns kChunks = 8 chunks (16 accumulators a thread each)
-// and delta passes through shared memory.
+//   rounded once to bf16, as the TPU kernels round it before the second
+//   product;
+//   dpreds[r] = sum_n delta[r, n] z[n]     the dP pass, (B, Tp, K, D)
+//   dz[n] = sum_r delta[r, n] preds[r]     the dZ pass, (N, D)
+// with fp32 sums; both outputs rounded once to the wire dtype. The dP pass
+// owns row tiles and sweeps the columns; the dZ pass owns column tiles and
+// sweeps the rows (it computes S^T, so that delta^T is again the left
+// operand). No sum crosses blocks except dZ's row groups (below), which are
+// added in a fixed order: no atomics, the same result every run.
 //
-// What bounds it on this card: operations. 2*R*N*D = 0.75 TFLOP forward,
-// and the scores again plus two such products backward, at tpu_fast,
-// against 91 MB of preds. The SIMT kernels reach about 13 TFLOP/s and the
-// mma.sync kernels about 140 (H100 80GB HBM3, 700 W), of the 989 the card
-// has for bf16: what is left is wgmma with TMA, a wider swept tile, and a
-// backward that shares one recompute between dP and dZ.
+// Two routes, chosen in Python (`allsteps_route`) and passed in; a route
+// that cannot launch returns an error, and neither gives way to the other.
+//
+// "simt": the fp32 wire, which is the parity configuration, and bf16 shapes
+// that 16-byte copies do not fit (or D > 576). Products on the SIMT fp32
+// pipe through cpc::tile_mm: allsteps_fwd_kernel, allsteps_dp_kernel,
+// allsteps_dz_kernel, each block 64 vectors by up to 512 of D (gridDim.y
+// covers more D, recomputing the scores).
+//
+// "wgmma": the bf16 wire of the training path (D % 8 == 0, D <= 576,
+// 16-byte aligned pointers and strides). What bounds it on this card:
+// operations. 2*R*N*D = 0.747 TFLOP a pass over the scores at tpu_fast
+// (3.26 at (R, N) = (194 304, 16 384)) against 91 MB of preds: 0.76 ms a
+// pass at the card's 989 TFLOP/s. The design, for the tensor cores' rate:
+// - Every product is `wgmma` (m64nNk16, bf16 in, fp32 sums), B always, and
+//   A for the scores, from shared memory in the 128-byte-swizzled layout
+//   its descriptors read: panels of 64 of D (128 bytes a vector), 8 vectors
+//   an atom of 1 024 bytes, chunk c of vector v at v*128 + ((c ^ (v & 7))*16).
+// - A block is two consumer warpgroups and a producer warpgroup (384
+//   threads), of which one warp works; setmaxnreg gives each consumer
+//   thread 232 registers and each producer thread 40. The block's own
+//   vectors are copied once (cp.async, through preds' strides) and stay
+//   resident in shared memory for the whole sweep. The producer streams the
+//   swept operand through a ring with TMA (`cp.async.bulk.tensor`, 2-D
+//   maps of 64 x rows boxes, zero outside the matrix, so ragged edges need
+//   no mask): a slot's full barrier completes on the bytes that landed, and
+//   each consumer warp marks it empty once its wgmma have read it. The
+//   producer never waits for a copy: a producer that marked a slot full
+//   only after its own cp.async.wait_group would hold every slot for a
+//   round trip through itself (PERF.md §6 "PR 9").
+// - Forward, allsteps_fwd_wgmma_kernel: 128 rows a block (64 a warpgroup),
+//   128 x D resident (128 KB at D = 512), columns swept 128 at a time in
+//   slots of one panel (16 KB, a ring of kFwdStages = 4). A warpgroup's
+//   64 x 128 scores sum in registers over D's panels, wgmma one panel ahead
+//   of the slot it releases. Row statistics are cpc::RowStats on wgmma's
+//   accumulator layout (a quad of lanes holds a row): max, sum, the
+//   positive's score and the first argmax need no exchange between warps.
+// - Backward, allsteps_dp_wgmma_kernel / allsteps_dz_wgmma_kernel: 64 owned
+//   vectors a block (64 x D resident), swept 64 at a time, a whole 64 x D
+//   tile a slot (2 slots): the tile is the scores' B and, read MN-major, the
+//   product's B, so it comes from L2 once. Each warpgroup computes the
+//   64 x 64 scores (S^T for dZ), forms delta in registers, rounds it to bf16
+//   A fragments (as FA3 does for P.V) and feeds them to its products over
+//   its own 256 of D (4 chunks of 64; a block covers 512 of D, gridDim.y
+//   more, each recomputing the scores). So a pass computes the scores twice
+//   at D = 512, 4.5 TFLOP for the backward at tpu_fast in all. dZ's swept
+//   rows are read from a contiguous (R, D) copy of preds in row order
+//   (the wrapper's, for the TMA map: 0.12 ms at tpu_fast).
+//   ROADMAP C4: the tensor core's fp32 adder truncates, which over a sweep
+//   of thousands of tiles pulls a sum towards zero (7e-5 of the gradient
+//   norm at tpu_fast, measured), so each tile's product is summed from zero
+//   in its own 32 registers and joins the running sum by an ordinary add.
+//   Registers a consumer thread: running sums 4 x 32, the tile's product 32
+//   (the scores' 32 are dead by then), delta 16, of 232; ptxas reports 168
+//   (the launch's count, before setmaxnreg) and no spills
+//   (build/kernels/*.log).
+// - dZ fills the card: its 64-column tiles (128 at tpu_fast) are fewer than
+//   the SMs, so the rows are split into G contiguous groups of row tiles
+//   (`allsteps_route` picks G so that the blocks cover every SM: 2 at
+//   tpu_fast, 1 where the columns alone do). Block (column tile, D part,
+//   group) writes its fp32 partial to a scratch of G x N x D floats, and
+//   allsteps_dz_finish_kernel adds the G partials in group order and rounds
+//   once to bf16: no atomics, the same bits every run.
+// Shared memory: forward 1 KB + 128 x D x 2 + 64 KB (193 KB at D = 512);
+// backward 1 KB + 3 x 64 x D x 2 (193 KB). One block an SM.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -307,190 +356,382 @@ __global__ void __launch_bounds__(kTileThreads)
 }
 
 // ---------------------------------------------------------------------
-// The bf16 wire on the tensor cores (mma.sync m16n8k16, fp32 sums).
-//
-// One block is 4 warps and owns 64 vectors of one operand (its X side: 64
-// prediction rows for the forward and dP, 64 pool columns for dZ), 16 to a
-// warp, and sweeps the other operand (the Y side) in tiles of 64 vectors.
-// A tile's work is a list of jobs, each on one 64 x 64 bf16 slab of X and
-// of Y in shared memory: D/64 score jobs (S += X Y^T over a 64-deep slice
-// of D; a warp's S, 16 x 64, is whole rows of the tile, so the softmax
-// statistics need no exchange between warps), then for the backward up to
-// kMmaChunks product jobs (out[:, 64-chunk of D] += delta Y, with Y's slab
-// read transposed by ldmatrix). delta never leaves registers: the S
-// fragments of two neighbouring 8-column tiles are, rounded to bf16, the A
-// fragment of one 16-deep product step. For dZ the block computes S^T (X =
-// columns), so that delta^T is again the A operand. The slabs sit in a ring
-// of kStages buffers: cp.async brings in job q + kStages - 1 while the
-// warps work on job q.
-// kMmaChunks * 64 = 256 columns of D is what a thread's registers hold
-// (128 fp32); D beyond that goes to gridDim.y, which recomputes S.
-//
-// cp.async moves 16 bytes, so this path needs D, the strides and the
-// pointers to be multiples of 8 elements; other shapes, and the fp32 wire,
-// take the SIMT kernels above.
+// The "wgmma" route (see the note at the top).
 
 using bf16_t = __nv_bfloat16;
 using cpc::RowStats;
 
-constexpr int kMmaThreads = 128;    // 4 warps x 16 vectors of the X side
-constexpr int kSlab = kTile + 8;    // a slab row: 64 bf16 and 8 of padding,
-                                    // which keeps ldmatrix off bank conflicts
-constexpr int kMmaChunks = 4;       // 64-wide chunks of D a backward block owns
-constexpr int kStages = 2;          // slabs in flight, the one in use
-                                    // included; 3 measured no faster
+constexpr int kPanel = 64;        // bf16 of D in one 128-byte panel row
+constexpr int kRowBytes = 128;    // bytes of a vector in one panel
+constexpr int kMaxPanels = 9;     // D <= 576: what shared memory holds
+constexpr int kConsumers = 2;     // consumer warpgroups a block
+constexpr int kWThreads = (kConsumers + 1) * 128;  // and a producer warpgroup
+constexpr int kProducerWarp = kConsumers * 4;      // its one working warp
+constexpr int kConsumerWarps = kConsumers * 4;
+// Registers a thread once the block has split (setmaxnreg): the launch
+// gives each of the 384 threads 168; the producer warpgroup hands 128 of
+// its 168 x 128 to the consumers, 2 x 128 x 64.
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kFwdRows = 128;     // forward: rows a block, 64 a warpgroup
+constexpr int kFwdCols = 128;     // forward: columns a swept tile
+constexpr int kFwdStages = 4;     // forward ring: (column tile, panel) slots
+constexpr int kFwdSlot = kFwdCols * kRowBytes;
+constexpr int kBwdVecs = 64;      // backward: owned and swept vectors a tile
+constexpr int kBwdStages = 2;     // backward ring: whole swept tiles
+constexpr int kBwdChunks = 4;     // 64-wide chunks of D a warpgroup owns
+constexpr int kBwdPart = kConsumers * kBwdChunks * kPanel;  // D a block: 512
 
-template <bool kRows>
-__device__ __forceinline__ void load_side(Side<bf16_t>& s, long long v0,
-                                          const bf16_t* p, const bf16_t* z,
-                                          const float* lse, const float* gn,
-                                          const Geo& g) {
-  if (kRows) {
-    load_row_side(s, v0, p, lse, gn, g);
-  } else {
-    load_col_side(s, v0, z, g);
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   cpc::smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// Starts the copy of elements [k0, k0 + 64) of the side's 64 vectors into
-// `dst`, zero-filling beyond D and for vectors outside the problem. `safe`
-// is any valid 16-byte aligned address, named where nothing is read.
-__device__ __forceinline__ void stage(bf16_t (&dst)[kTile][kSlab],
-                                      const Side<bf16_t>& side, int k0, int D,
-                                      const bf16_t* safe) {
-  for (int e = threadIdx.x; e < kTile * 8; e += kMmaThreads) {
-    const int row = e >> 3, c = (e & 7) * 8;
-    const bf16_t* q = side.ptr[row];
-    const bool in = q != nullptr && k0 + c < D;
-    cpc::cp_async16(&dst[row][c], in ? q + k0 + c : safe, in ? 16 : 0);
-  }
+// Arrives on the barrier (release: the thread's writes before it are
+// visible to a thread whose wait sees the phase complete).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          cpc::smem_addr(bar))
+      : "memory");
 }
 
-// The block's shared memory: the ring of slabs, the X side, and the Y sides
-// of the tiles the ring reaches into.
-struct MmaSmem {
-  alignas(16) bf16_t xs[kStages][kTile][kSlab];
-  alignas(16) bf16_t ys[kStages][kTile][kSlab];
-  Side<bf16_t> xm, ym[kStages];
+// Arrives and adds `bytes` to the transactions the phase waits for.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], "
+      "%1;\n}\n" ::"r"(cpc::smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// TMA: the box at (c0 along D, c1 along the vectors) of the 2-D map into
+// shared memory at dst (1 024-byte aligned), zero-filled outside the
+// tensor; completes `bar`'s transactions.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(cpc::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(cpc::smem_addr(bar))
+      : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed; every lane of the
+// warp calls it, and leaves it together (wgmma wants the warp converged).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = cpc::smem_addr(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+  __syncwarp();
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Makes this thread's writes to shared memory visible to wgmma's reads
+// (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most kPending groups of this warpgroup's wgmma are in
+// flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Pins the registers in place around asynchronous wgmma: the compiler
+// neither reads them before the wait nor moves writes past the issue.
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The descriptor of a 128-byte-swizzled operand at shared address `saddr`
+// (an atom of 8 vectors x 128 bytes, 1 024-byte aligned, or 32-byte steps
+// into one along K). Both byte offsets are 1 024: the stride between 8-vector
+// groups, K-major, and between 8-deep groups of K, MN-major; the other
+// offset is unused at a width of one panel.
+__device__ __forceinline__ uint64_t desc_sw128(unsigned saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (m64 x n128, fp32) = (scale_d ? d : 0) + A . B over 16 of K; A and B
+// K-major in shared memory (descriptors a, b).
+__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (m64 x n64, fp32) = (scale_d ? d : 0) + A . B over 16 of K; A and B
+// K-major in shared memory (descriptors a, b).
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (m64 x n64, fp32) = (scale_d ? d : 0) + A . B over 16 of K; A in
+// registers (the m16n8k16 A fragment of the thread's warp, rows 16 x warp),
+// B MN-major in shared memory (descriptor b).
+__device__ __forceinline__ void wgmma_m64n64_rs_mn(float (&d)[32],
+                                                     const unsigned (&a)[4],
+                                                     uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const unsigned a = cpc::smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// Row r's (i, t, k) and what follows from them.
+struct RowAt {
+  const bf16_t* ptr;  // preds[i, t, k]
+  long long out;      // offset of dpreds[i, t, k] in the contiguous output
+  int key;            // its positive column
 };
-static_assert(sizeof(MmaSmem) <= 48 * 1024,
-              "more stages need dynamic shared memory");
 
-// Before the work on job q: starts the copies of job q + kStages - 1
-// (`fetch` stages nothing past the last job, and always closes a group, so
-// the count of groups in flight stays the same), waits for job q's, and
-// makes them visible to the block.
-template <class Fetch>
-__device__ __forceinline__ void next_job(long long q, const Fetch& fetch) {
-  fetch(q + kStages - 1);
-  cpc::cp_async_wait<kStages - 1>();
+__device__ __forceinline__ RowAt row_at(long long r, const bf16_t* p,
+                                        const Geo& g) {
+  const int i = static_cast<int>(r % g.B);
+  const long long tk = r / g.B;
+  const int k = static_cast<int>(tk % g.K), t = static_cast<int>(tk / g.K);
+  return {p + i * g.p_sb + t * g.p_st + static_cast<long long>(k) * g.D,
+          ((static_cast<long long>(i) * g.Tp + t) * g.K + k) * g.D,
+          (g.shift + i) * g.T + t + k + 1};
+}
+
+// Copies the block's `vecs` own vectors (pointers xptr, nullptr outside the
+// problem) into the panels at xs with every thread of the block, 16 bytes a
+// copy, neighbouring threads along a vector, zero beyond D; then makes them
+// visible to wgmma. `safe` is any valid 16-byte aligned address, named where
+// nothing is read. Ends with __syncthreads().
+__device__ __forceinline__ void stage_own(unsigned char* xs, int vecs,
+                                          const bf16_t* const* xptr, int D,
+                                          const bf16_t* safe) {
+  const int per = ((D + kPanel - 1) / kPanel) * 8;  // chunks a vector
+  for (int e = threadIdx.x; e < vecs * per; e += kWThreads) {
+    const int v = e / per, c = e % per, ch = c & 7;
+    const bool in = xptr[v] != nullptr && c * 8 < D;
+    cpc::cp_async16(xs + (c >> 3) * vecs * kRowBytes + v * kRowBytes +
+                        ((ch ^ (v & 7)) << 4),
+                    in ? xptr[v] + c * 8 : safe, in ? 16 : 0);
+  }
+  cpc::cp_async_commit();
+  cpc::cp_async_wait<0>();
+  fence_async_smem();
   __syncthreads();
 }
 
-// s (16 x 64 of this warp) += X[warp's 16 vectors] . Y[64 vectors]^T over
-// the 64-deep slabs xt, yt.
-__device__ __forceinline__ void score_mma(const bf16_t (&xt)[kTile][kSlab],
-                                          const bf16_t (&yt)[kTile][kSlab],
-                                          float (&s)[8][4]) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    unsigned a[4];
-    cpc::ldmatrix_x4(a, &xt[warp * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {  // two 8-column tiles a load
-      unsigned b[4];
-      cpc::ldmatrix_x4(b, &yt[np * 16 + lane % 8 + (lane / 16) * 8]
-                             [kk * 16 + ((lane / 8) % 2) * 8]);
-      cpc::mma_bf16(s[2 * np], a, b[0], b[1]);
-      cpc::mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-    }
+// The producer warp's loop over `jobs` slots of a ring of kStages: once the
+// consumers' kConsumerWarps arrivals have marked a slot empty, fill(q, slot)
+// starts job q's TMA copies and arrives on the slot's full barrier, whose
+// phase completes when the copies' bytes have landed. The producer never
+// waits for a copy.
+template <int kStages, class Fill>
+__device__ __forceinline__ void produce(int jobs, uint64_t* empty,
+                                        const Fill& fill) {
+  for (int q = 0; q < jobs; ++q) {
+    const int s = q % kStages;
+    if (q >= kStages) mbar_wait(&empty[s], ((q / kStages) - 1) & 1);
+    fill(q, s);
   }
 }
 
-// o (16 x 64 of this warp) += delta (16 x 64, as A fragments) . Y[64
-// vectors][64-chunk of D], the slab yt read transposed. The tensor core's
-// fp32 adder truncates, which over the thousands of steps of a sweep pulls
-// a sum towards zero (7e-5 of the gradient norm at tpu_fast, measured), so
-// the tile's product is summed from zero and joins the running sum by an
-// ordinary rounded add.
-__device__ __forceinline__ void product_mma(const bf16_t (&yt)[kTile][kSlab],
-                                            const unsigned (&delta)[4][4],
-                                            float (&o)[8][4]) {
-  const int lane = threadIdx.x % 32;
-  float t[8][4] = {};
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-    for (int dp = 0; dp < 4; ++dp) {
-      unsigned b[4];
-      cpc::ldmatrix_x4_trans(
-          b, &yt[ks * 16 + lane % 16][dp * 16 + (lane / 16) * 8]);
-      cpc::mma_bf16(t[2 * dp], delta[ks], b[0], b[1]);
-      cpc::mma_bf16(t[2 * dp + 1], delta[ks], b[2], b[3]);
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] += t[nt][e];
+// A consumer warp is done with a slot (its wgmma reading it have completed).
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+  __syncwarp();
 }
 
-// Grid (ceil(R / 64)); block kMmaThreads.
-__global__ void __launch_bounds__(kMmaThreads)
-    allsteps_fwd_mma_kernel(const bf16_t* __restrict__ p,
-                            const bf16_t* __restrict__ z,
-                            float* __restrict__ nll, float* __restrict__ cor,
-                            float* __restrict__ lse, Geo g) {
-  __shared__ MmaSmem sm;
-  Side<bf16_t>& xm = sm.xm;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const long long r0 = static_cast<long long>(blockIdx.x) * kTile;
-  const int KC = (g.D + kTile - 1) / kTile;
-  const int n_tiles = (g.N + kTile - 1) / kTile;
-  const long long total = static_cast<long long>(n_tiles) * KC;
-  load_row_side(xm, r0, p, nullptr, nullptr, g);
-  for (int it = 0; it < kStages - 1 && it < n_tiles; ++it) {
-    load_col_side(sm.ym[it], static_cast<long long>(it) * kTile, z, g);
+// Grid (ceil(R / 128)); block kWThreads; dynamic shared memory
+// fwd_smem_bytes(D).
+__global__ void __launch_bounds__(kWThreads, 1)
+    allsteps_fwd_wgmma_kernel(const bf16_t* __restrict__ p,
+                              const bf16_t* __restrict__ z,
+                              float* __restrict__ nll,
+                              float* __restrict__ cor,
+                              float* __restrict__ lse, Geo g,
+                              const __grid_constant__ CUtensorMap zmap) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kFwdStages], empty[kFwdStages];
+  __shared__ const bf16_t* xptr[kFwdRows];
+  unsigned char* xs = align_1024(smem_raw);
+  const int KC = (g.D + kPanel - 1) / kPanel;
+  unsigned char* ring = xs + KC * kFwdRows * kRowBytes;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kFwdRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid < kFwdRows) {
+    xptr[tid] = r0 + tid < g.R ? row_at(r0 + tid, p, g).ptr : nullptr;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
   }
   __syncthreads();
-  auto fetch = [&](long long q) {
-    if (q < total) {
-      const int it = static_cast<int>(q / KC), kc = static_cast<int>(q % KC);
-      stage(sm.xs[q % kStages], xm, kc * kTile, g.D, z);
-      stage(sm.ys[q % kStages], sm.ym[it % kStages], kc * kTile, g.D, z);
-    }
-    cpc::cp_async_commit();
-  };
-  for (int q = 0; q < kStages - 1; ++q) fetch(q);
-  const int row[2] = {warp * 16 + lane / 4, warp * 16 + lane / 4 + 8};
-  const int label[2] = {xm.key[row[0]], xm.key[row[1]]};
+  stage_own(xs, kFwdRows, xptr, g.D, z);
+  const int n_tiles = (g.N + kFwdCols - 1) / kFwdCols;
+  const int jobs = n_tiles * KC;
+
+  if (warp >= kConsumerWarps) {  // the producer warpgroup: one warp works
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kProducerWarp) return;
+    produce<kFwdStages>(jobs, empty, [&](int q, int s) {
+      if (lane == 0) {  // slot: 128 columns x one panel of D
+        mbar_arrive_tx(&full[s], kFwdSlot);
+        tma_load(ring + s * kFwdSlot, &zmap, (q % KC) * kPanel,
+                 (q / KC) * kFwdCols, &full[s]);
+      }
+    });
+    return;
+  }
+
+  // a consumer: warpgroup wg owns rows 64*wg.., the thread rows[h] below
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4, lw = warp % 4;
+  long long row[2];
+  int label[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = r0 + wg * 64 + lw * 16 + lane / 4 + 8 * h;
+    label[h] = row[h] < g.R ? row_at(row[h], p, g).key : -1;
+  }
   RowStats<2, 4> st;
   st.init();
-  long long q = 0;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int ahead = it + kStages - 1;  // the farthest tile the ring reaches
-    if (ahead < n_tiles) {
-      load_col_side(sm.ym[ahead % kStages],
-                    static_cast<long long>(ahead) * kTile, z, g);
-      __syncthreads();
+  const unsigned xa = cpc::smem_addr(xs) + wg * 64 * kRowBytes;
+  const unsigned ra = cpc::smem_addr(ring);
+  float acc[64] = {};
+  int q = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    for (int pnl = 0; pnl < KC; ++pnl, ++q) {
+      const int s = q % kFwdStages;
+      mbar_wait(&full[s], (q / kFwdStages) & 1);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_m64n128_ss(
+            acc, desc_sw128(xa + pnl * kFwdRows * kRowBytes + kk * 32),
+            desc_sw128(ra + s * kFwdSlot + kk * 32), pnl > 0 || kk > 0);
+      }
+      wgmma_commit();
+      if (pnl > 0) {
+        wgmma_wait<1>();
+        release(&empty[(q - 1) % kFwdStages]);
+      }
     }
-    float s[8][4] = {};
-    for (int kc = 0; kc < KC; ++kc, ++q) {
-      next_job(q, fetch);
-      score_mma(sm.xs[q % kStages], sm.ys[q % kStages], s);
-      __syncthreads();
-    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(&empty[(q - 1) % kFwdStages]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // the thread's two rows
-      float v[16];
-      int col[16];
+      float v[32];
+      int col[32];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int jn = 0; jn < 16; ++jn)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          v[nt * 2 + e] = s[nt][h * 2 + e];
-          col[nt * 2 + e] = it * kTile + nt * 8 + (lane % 4) * 2 + e;
+          v[jn * 2 + e] = acc[jn * 4 + h * 2 + e];
+          col[jn * 2 + e] = j * kFwdCols + jn * 8 + (lane % 4) * 2 + e;
         }
       st.update_row(h, v, col, g.N, label[h]);
     }
@@ -499,141 +740,266 @@ __global__ void __launch_bounds__(kMmaThreads)
   if (lane % 4 == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const long long r = r0 + row[h];
-      if (r >= g.R) continue;
+      if (row[h] >= g.R) continue;
       const float row_lse = st.lse(h);
-      nll[r] = row_lse - st.s_lab[h];
-      cor[r] = st.best_c[h] == label[h] ? 1.f : 0.f;
-      lse[r] = row_lse;
+      nll[row[h]] = row_lse - st.s_lab[h];
+      cor[row[h]] = st.best_c[h] == label[h] ? 1.f : 0.f;
+      lse[row[h]] = row_lse;
     }
   }
 }
 
-// The backward of one block: X = rows (dP, kOwnRows) or columns (dZ);
-// out = dp (B, Tp, K, D) or dz (N, D), contiguous.
-// Grid (ceil(|X| / 64), ceil(D / (64 * kMmaChunks))); block kMmaThreads.
+// The backward of one block: it owns 64 vectors X (rows of preds for dP,
+// kOwnRows; columns of the pool for dZ) and sweeps tiles of 64 vectors Y of
+// the other operand: all column tiles for dP, the row tiles of its group
+// for dZ. Writes dp (B, Tp, K, D) bf16 for dP, its group's fp32 partial
+// part[group] (N, D) for dZ. Grid (ceil(|X| / 64), D parts x groups); block
+// kWThreads; dynamic shared memory bwd_smem_bytes(D).
 template <bool kOwnRows>
-__device__ __forceinline__ void bwd_mma_body(const float* __restrict__ gn,
-                                             const float* __restrict__ lse,
-                                             const bf16_t* __restrict__ p,
-                                             const bf16_t* __restrict__ z,
-                                             bf16_t* __restrict__ out,
-                                             const Geo& g) {
-  __shared__ MmaSmem sm;
-  Side<bf16_t>& xm = sm.xm;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const long long x0 = static_cast<long long>(blockIdx.x) * kTile;
-  const int dbase = blockIdx.y * kTile * kMmaChunks;
-  const int left = (g.D - dbase + kTile - 1) / kTile;
-  const int nch = left < kMmaChunks ? left : kMmaChunks;
-  const int KC = (g.D + kTile - 1) / kTile;
-  const int jobs = KC + nch;
-  const long long ny = kOwnRows ? g.N : g.R;
-  const long long n_tiles = (ny + kTile - 1) / kTile;
-  const long long total = n_tiles * jobs;
-  load_side<kOwnRows>(xm, x0, p, z, lse, gn, g);
-  for (int it = 0; it < kStages - 1 && it < n_tiles; ++it) {
-    load_side<!kOwnRows>(sm.ym[it], static_cast<long long>(it) * kTile, p, z,
-                         lse, gn, g);
+__device__ __forceinline__ void bwd_wgmma_body(
+    const float* __restrict__ gn, const float* __restrict__ lse,
+    const bf16_t* __restrict__ p, const bf16_t* __restrict__ z,
+    bf16_t* __restrict__ dp, float* __restrict__ part, const Geo& g,
+    int groups, const CUtensorMap* ymap) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kBwdStages], empty[kBwdStages];
+  __shared__ const bf16_t* xptr[kBwdVecs];
+  // the swept vectors' lse, g and key, a slot each; columns of the pool
+  // carry lse = 0, g = 1 and their own index, rows of preds theirs, so that
+  //   delta = (exp(s - x.lse - y.lse) - (x.key == y.key)) * (x.g * y.g)
+  // reads the same whichever side the rows are on (and equals the plain
+  // version's (exp(s - lse) - onehot) * g bit for bit); outside the problem
+  // a zero vector with g = 0.
+  __shared__ float y_lse[kBwdStages][kBwdVecs], y_g[kBwdStages][kBwdVecs];
+  __shared__ int y_key[kBwdStages][kBwdVecs];
+  unsigned char* xs = align_1024(smem_raw);
+  const int KC = (g.D + kPanel - 1) / kPanel;
+  const int tile_bytes = KC * kBwdVecs * kRowBytes;
+  unsigned char* ring = xs + tile_bytes;
+  const long long x0 = static_cast<long long>(blockIdx.x) * kBwdVecs;
+  const int d_parts = (g.D + kBwdPart - 1) / kBwdPart;
+  const int dpart = blockIdx.y % d_parts, group = blockIdx.y / d_parts;
+  const long long n_x = kOwnRows ? g.R : g.N;
+  long long y_lo = 0, y_hi = (g.N + kBwdVecs - 1) / kBwdVecs;
+  if (!kOwnRows) {
+    const long long row_tiles = (g.R + kBwdVecs - 1) / kBwdVecs;
+    y_lo = group * row_tiles / groups;
+    y_hi = (group + 1) * row_tiles / groups;
+  }
+  const int jobs = static_cast<int>(y_hi - y_lo);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid < kBwdVecs) {
+    const long long v = x0 + tid;
+    xptr[tid] = v >= n_x ? nullptr
+                : kOwnRows ? row_at(v, p, g).ptr
+                           : z + static_cast<size_t>(v) * g.D;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer's lanes, after the side arrays
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
   }
   __syncthreads();
-  auto fetch = [&](long long q) {
-    if (q < total) {
-      const long long it = q / jobs;
-      const int j = static_cast<int>(q % jobs);
-      const Side<bf16_t>& y = sm.ym[it % kStages];
-      if (j < KC) {
-        stage(sm.xs[q % kStages], xm, j * kTile, g.D, z);
-        stage(sm.ys[q % kStages], y, j * kTile, g.D, z);
+  stage_own(xs, kBwdVecs, xptr, g.D, z);
+
+  if (warp >= kConsumerWarps) {  // the producer warpgroup: one warp works
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kProducerWarp) return;
+    produce<kBwdStages>(jobs, empty, [&](int q, int s) {
+      const long long v0 = (y_lo + q) * kBwdVecs;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // vectors lane and lane + 32
+        const int m = lane + 32 * h;
+        const long long v = v0 + m;
+        if (!kOwnRows) {  // Y = rows of preds
+          const bool in = v < g.R;
+          y_lse[s][m] = in ? lse[v] : 0.f;
+          y_g[s][m] = in ? gn[v] : 0.f;
+          y_key[s][m] = in ? row_at(v, p, g).key : -1;
+        } else {  // Y = columns of the pool
+          const bool in = v < g.N;
+          y_lse[s][m] = 0.f;
+          y_g[s][m] = in ? 1.f : 0.f;
+          y_key[s][m] = in ? static_cast<int>(v) : -2;
+        }
+      }
+      if (lane == 0) {  // slot: the 64 vectors of the tile, all D's panels
+        mbar_arrive_tx(&full[s], tile_bytes);
+        for (int pnl = 0; pnl < KC; ++pnl) {
+          tma_load(ring + s * tile_bytes + pnl * kBwdVecs * kRowBytes, ymap,
+                   pnl * kPanel, static_cast<int>(v0), &full[s]);
+        }
       } else {
-        stage(sm.ys[q % kStages], y, dbase + (j - KC) * kTile, g.D, z);
+        mbar_arrive(&full[s]);
+      }
+    });
+    return;
+  }
+
+  // a consumer: both warpgroups hold the scores of all 64 X vectors (rows
+  // 16*lw + lane/4 + 8h of the thread) and own 256 of D each for the product
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp / 4, lw = warp % 4;
+  float x_lse[2], x_g[2];
+  int x_key[2];
+  long long xv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    xv[h] = x0 + lw * 16 + lane / 4 + 8 * h;
+    const bool in = xv[h] < n_x;
+    if (kOwnRows) {
+      x_lse[h] = in ? lse[xv[h]] : 0.f;
+      x_g[h] = in ? gn[xv[h]] : 0.f;
+      x_key[h] = in ? row_at(xv[h], p, g).key : -1;
+    } else {
+      x_lse[h] = 0.f;
+      x_g[h] = in ? 1.f : 0.f;
+      x_key[h] = in ? static_cast<int>(xv[h]) : -2;
+    }
+  }
+  const int dbase = dpart * kBwdPart + wg * kBwdChunks * kPanel;
+  const int left = (g.D - dbase + kPanel - 1) / kPanel;
+  const int nch = left < 0 ? 0 : (left < kBwdChunks ? left : kBwdChunks);
+  const unsigned xa = cpc::smem_addr(xs);
+  const unsigned ra = cpc::smem_addr(ring);
+  float run[kBwdChunks][32];
+#pragma unroll
+  for (int c = 0; c < kBwdChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) run[c][i] = 0.f;
+
+  for (int q = 0; q < jobs; ++q) {
+    const int s = q % kBwdStages;
+    const unsigned slot = ra + s * tile_bytes;
+    mbar_wait(&full[s], (q / kBwdStages) & 1);
+    // the 64 x 64 scores (S^T for dZ), summed over D's panels
+    float sc[32];
+    fence_regs(sc);
+    wgmma_fence();
+    for (int pnl = 0; pnl < KC; ++pnl) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const unsigned off = pnl * kBwdVecs * kRowBytes + kk * 32;
+        wgmma_m64n64_ss(sc, desc_sw128(xa + off), desc_sw128(slot + off),
+                        pnl > 0 || kk > 0);
       }
     }
-    cpc::cp_async_commit();
-  };
-  for (int q = 0; q < kStages - 1; ++q) fetch(q);
-  const int row[2] = {warp * 16 + lane / 4, warp * 16 + lane / 4 + 8};
-  float acc[kMmaChunks][8][4] = {};
-  long long q = 0;
-  for (long long it = 0; it < n_tiles; ++it) {
-    const long long ahead = it + kStages - 1;  // the farthest tile in the ring
-    if (ahead < n_tiles) {
-      load_side<!kOwnRows>(sm.ym[ahead % kStages], ahead * kTile, p, z, lse,
-                           gn, g);
-      __syncthreads();
-    }
-    float s[8][4] = {};
-    for (int kc = 0; kc < KC; ++kc, ++q) {
-      next_job(q, fetch);
-      score_mma(sm.xs[q % kStages], sm.ys[q % kStages], s);
-      __syncthreads();
-    }
-    // delta, rounded to bf16, as the A fragments of the product
-    const Side<bf16_t>& y = sm.ym[it % kStages];
-    unsigned delta[4][4];
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    // delta, rounded to bf16, as the A fragments of the product: the
+    // accumulators of n8 tiles 2kk and 2kk+1 are the fragment of K-step kk
+    unsigned dl[4][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int jn = 0; jn < 8; ++jn) {
       float d[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int xi = row[e / 2], yj = nt * 8 + (lane % 4) * 2 + (e & 1);
-        d[e] = (expf(s[nt][e] - xm.lse[xi] - y.lse[yj]) -
-                (xm.key[xi] == y.key[yj] ? 1.f : 0.f)) *
-               (xm.g[xi] * y.g[yj]);
+        const int h = e / 2, y = jn * 8 + (lane % 4) * 2 + (e & 1);
+        d[e] = (expf(sc[jn * 4 + e] - x_lse[h] - y_lse[s][y]) -
+                (x_key[h] == y_key[s][y] ? 1.f : 0.f)) *
+               (x_g[h] * y_g[s][y]);
       }
-      delta[nt / 2][(nt % 2) * 2] = cpc::pack_bf16(d[0], d[1]);
-      delta[nt / 2][(nt % 2) * 2 + 1] = cpc::pack_bf16(d[2], d[3]);
+      dl[jn / 2][(jn % 2) * 2] = cpc::pack_bf16(d[0], d[1]);
+      dl[jn / 2][(jn % 2) * 2 + 1] = cpc::pack_bf16(d[2], d[3]);
     }
+    // out[:, chunk c] += delta . Y[:, chunk c], Y's panel read MN-major;
+    // summed from zero a tile, then added (ROADMAP C4)
 #pragma unroll
-    for (int ch = 0; ch < kMmaChunks; ++ch) {
-      if (ch >= nch) break;  // block-uniform
-      next_job(q, fetch);
-      product_mma(sm.ys[q % kStages], delta, acc[ch]);
-      __syncthreads();
-      ++q;
+    for (int c = 0; c < kBwdChunks; ++c) {
+      if (c >= nch) break;  // warpgroup-uniform
+      const unsigned panel = slot + (dbase / kPanel + c) * kBwdVecs * kRowBytes;
+      float t[32];
+      fence_regs(t);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_m64n64_rs_mn(t, dl[kk], desc_sw128(panel + kk * 16 * kRowBytes),
+                           kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(t);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) run[c][i] += t[i];
     }
+    release(&empty[s]);
   }
+
 #pragma unroll
-  for (int ch = 0; ch < kMmaChunks; ++ch)
+  for (int c = 0; c < kBwdChunks; ++c) {
+    if (c >= nch) break;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (x0 + row[h] >= (kOwnRows ? g.R : static_cast<long long>(g.N))) {
-        continue;
-      }
-      bf16_t* dst = out + xm.out[row[h]];
+      if (xv[h] >= n_x) continue;
+      const long long base =
+          kOwnRows ? row_at(xv[h], p, g).out
+                   : (static_cast<long long>(group) * g.N + xv[h]) * g.D;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int d = dbase + ch * kTile + nt * 8 + (lane % 4) * 2;
-        if (d < g.D) {  // D is even: the pair is inside, and 4-byte aligned
-          *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(
-              acc[ch][nt][h * 2], acc[ch][nt][h * 2 + 1]);
+      for (int jn = 0; jn < 8; ++jn) {
+        const int d = dbase + c * kPanel + jn * 8 + (lane % 4) * 2;
+        if (d >= g.D) continue;  // D % 8 == 0: the pair is inside
+        const float a = run[c][jn * 4 + h * 2], b = run[c][jn * 4 + h * 2 + 1];
+        if (kOwnRows) {
+          *reinterpret_cast<__nv_bfloat162*>(dp + base + d) =
+              __floats2bfloat162_rn(a, b);
+        } else {
+          *reinterpret_cast<float2*>(part + base + d) = make_float2(a, b);
         }
       }
     }
+  }
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-    allsteps_dp_mma_kernel(const float* __restrict__ gn,
-                           const float* __restrict__ lse,
-                           const bf16_t* __restrict__ p,
-                           const bf16_t* __restrict__ z,
-                           bf16_t* __restrict__ dp, Geo g) {
-  bwd_mma_body<true>(gn, lse, p, z, dp, g);
+__global__ void __launch_bounds__(kWThreads, 1)
+    allsteps_dp_wgmma_kernel(const float* __restrict__ gn,
+                             const float* __restrict__ lse,
+                             const bf16_t* __restrict__ p,
+                             const bf16_t* __restrict__ z,
+                             bf16_t* __restrict__ dp, Geo g,
+                             const __grid_constant__ CUtensorMap zmap) {
+  bwd_wgmma_body<true>(gn, lse, p, z, dp, nullptr, g, 1, &zmap);
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-    allsteps_dz_mma_kernel(const float* __restrict__ gn,
-                           const float* __restrict__ lse,
-                           const bf16_t* __restrict__ p,
-                           const bf16_t* __restrict__ z,
-                           bf16_t* __restrict__ dz, Geo g) {
-  bwd_mma_body<false>(gn, lse, p, z, dz, g);
+__global__ void __launch_bounds__(kWThreads, 1)
+    allsteps_dz_wgmma_kernel(const float* __restrict__ gn,
+                             const float* __restrict__ lse,
+                             const bf16_t* __restrict__ p,
+                             const bf16_t* __restrict__ z,
+                             float* __restrict__ part, Geo g, int groups,
+                             const __grid_constant__ CUtensorMap rowmap) {
+  bwd_wgmma_body<false>(gn, lse, p, z, nullptr, part, g, groups, &rowmap);
 }
 
-// Whether cp.async's 16 bytes fit the operands.
-bool mma_ok(const Geo& g, const void* p, const void* z) {
-  return g.D % 8 == 0 && g.p_sb % 8 == 0 && g.p_st % 8 == 0 &&
-         reinterpret_cast<size_t>(p) % 16 == 0 &&
+// dz = bf16(part[0] + part[1] + ... + part[groups - 1]), added in that
+// order; n4 = N*D / 4 (D % 8 == 0).
+__global__ void __launch_bounds__(256)
+    allsteps_dz_finish_kernel(const float4* __restrict__ part,
+                              __nv_bfloat162* __restrict__ dz, long long n4,
+                              int groups) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    float4 a = part[i];
+    for (int q = 1; q < groups; ++q) {
+      const float4 b = part[q * n4 + i];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    dz[2 * i] = __floats2bfloat162_rn(a.x, a.y);
+    dz[2 * i + 1] = __floats2bfloat162_rn(a.z, a.w);
+  }
+}
+
+// Whether the wgmma route's copies and shared memory fit the operands:
+// 16-byte copies (D, the strides and the pointers multiples of 8 elements)
+// and at most kMaxPanels panels of D.
+bool wgmma_ok(const Geo& g, const void* p, const void* z) {
+  return g.D % 8 == 0 && g.D <= kMaxPanels * kPanel && g.p_sb % 8 == 0 &&
+         g.p_st % 8 == 0 && reinterpret_cast<size_t>(p) % 16 == 0 &&
          reinterpret_cast<size_t>(z) % 16 == 0;
 }
 
@@ -649,6 +1015,62 @@ bool geo_ok(const Geo& g) {
          tiles(g.R, kTile) >= 1 && tiles(g.D, kTile * kChunks) <= 65535;
 }
 
+int panels(int D) { return (D + kPanel - 1) / kPanel; }
+
+// Dynamic shared memory: 1 KB to align the panels to 1 024 bytes, the own
+// vectors, the ring.
+int fwd_smem_bytes(int D) {
+  return 1024 + panels(D) * (kFwdRows * kRowBytes) + kFwdStages * kFwdSlot;
+}
+
+int bwd_smem_bytes(int D) {
+  return 1024 + (1 + kBwdStages) * panels(D) * kBwdVecs * kRowBytes;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The TMA map of a contiguous (rows, D) bf16 matrix, read in boxes of
+// `box_rows` vectors by one 64-wide panel of D, 128-byte swizzled (the
+// layout of the wgmma descriptors), zero outside the matrix.
+int vector_map(CUtensorMap* map, const void* base, long long rows, int D,
+               int box_rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    void* fn = nullptr;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
+      return static_cast<int>(cudaErrorNotSupported);
+    }
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
+  const cuuint32_t box[2] = {kPanel, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <class Kernel>
+int allow_smem(Kernel* kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
 template <typename T>
 int launch_fwd(const void* p, const void* z, float* nll, float* cor,
                float* lse, const Geo& g, cudaStream_t s) {
@@ -657,11 +1079,17 @@ int launch_fwd(const void* p, const void* z, float* nll, float* cor,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_fwd_mma(const void* p, const void* z, float* nll, float* cor,
-                   float* lse, const Geo& g, cudaStream_t s) {
-  allsteps_fwd_mma_kernel<<<tiles(g.R, kTile), kMmaThreads, 0, s>>>(
+int launch_fwd_wgmma(const void* p, const void* z, float* nll, float* cor,
+                     float* lse, const Geo& g, cudaStream_t s) {
+  const int smem = fwd_smem_bytes(g.D);
+  CUtensorMap zmap;
+  int err = vector_map(&zmap, z, g.N, g.D, kFwdCols);
+  if (err) return err;
+  err = allow_smem(allsteps_fwd_wgmma_kernel, smem);
+  if (err) return err;
+  allsteps_fwd_wgmma_kernel<<<tiles(g.R, kFwdRows), kWThreads, smem, s>>>(
       static_cast<const bf16_t*>(p), static_cast<const bf16_t*>(z), nll, cor,
-      lse, g);
+      lse, g, zmap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -681,20 +1109,43 @@ int launch_bwd(const float* gn, const float* lse, const void* p,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bwd_mma(const float* gn, const float* lse, const void* p,
-                   const void* z, void* dp, void* dz, const Geo& g,
-                   cudaStream_t s) {
+int launch_bwd_wgmma(const float* gn, const float* lse, const void* p,
+                     const void* z, const void* rows, void* dp, void* dz,
+                     float* part, int groups, const Geo& g, cudaStream_t s) {
   const bf16_t* pt = static_cast<const bf16_t*>(p);
   const bf16_t* zt = static_cast<const bf16_t*>(z);
-  const int dy = tiles(g.D, kTile * kMmaChunks);
-  allsteps_dp_mma_kernel<<<dim3(tiles(g.R, kTile), dy), kMmaThreads, 0, s>>>(
-      gn, lse, pt, zt, static_cast<bf16_t*>(dp), g);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  allsteps_dz_mma_kernel<<<dim3(tiles(g.N, kTile), dy), kMmaThreads, 0, s>>>(
-      gn, lse, pt, zt, static_cast<bf16_t*>(dz), g);
+  const int smem = bwd_smem_bytes(g.D);
+  const int d_parts = tiles(g.D, kBwdPart);
+  CUtensorMap zmap, rowmap;
+  int err = vector_map(&zmap, z, g.N, g.D, kBwdVecs);
+  if (err) return err;
+  err = vector_map(&rowmap, rows, g.R, g.D, kBwdVecs);
+  if (err) return err;
+  err = allow_smem(allsteps_dp_wgmma_kernel, smem);
+  if (err) return err;
+  err = allow_smem(allsteps_dz_wgmma_kernel, smem);
+  if (err) return err;
+  allsteps_dp_wgmma_kernel<<<dim3(tiles(g.R, kBwdVecs), d_parts), kWThreads,
+                             smem, s>>>(gn, lse, pt, zt,
+                                        static_cast<bf16_t*>(dp), g, zmap);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  allsteps_dz_wgmma_kernel<<<dim3(tiles(g.N, kBwdVecs), d_parts * groups),
+                             kWThreads, smem, s>>>(gn, lse, pt, zt, part, g,
+                                                   groups, rowmap);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long long n4 = static_cast<long long>(g.N) * g.D / 4;
+  const long long blocks = (n4 + 255) / 256;
+  allsteps_dz_finish_kernel<<<static_cast<int>(blocks < 65535 ? blocks
+                                                               : 65535),
+                              256, 0, s>>>(
+      reinterpret_cast<const float4*>(part),
+      static_cast<__nv_bfloat162*>(dz), n4, groups);
   return static_cast<int>(cudaGetLastError());
 }
+
+constexpr int kRouteSimt = 0, kRouteWgmma = 1;  // allsteps_route's names
 
 }  // namespace
 
@@ -704,51 +1155,74 @@ extern "C" {
 // cudaGetLastError() (0 on success). p is preds (B, Tp, K, D) with batch and
 // time strides p_sb, p_st (elements; the last two axes contiguous), z the
 // pool (C*T, D) contiguous, both bf16 (bf16 != 0) or fp32; nll, cor, lse
-// (Tp*K*B,) fp32. Does not synchronise.
+// (Tp*K*B,) fp32. route: 0 the SIMT kernel, 1 the wgmma kernel (bf16 that
+// wgmma_ok takes; anything else is cudaErrorInvalidValue). Does not
+// synchronise.
 int allsteps_nll_fwd(const void* p, const void* z, void* nll, void* cor,
                      void* lse, int T, int B, int C, int K, int D, int shift,
-                     long long p_sb, long long p_st, int bf16, int device,
-                     void* stream) {
+                     long long p_sb, long long p_st, int bf16, int route,
+                     int device, void* stream) {
   if (T <= K || static_cast<long long>(C) * T > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Geo g{static_cast<long long>(T - K) * K * B, C * T, T, B, K, D,
               T - K, shift, p_sb, p_st};
   if (!geo_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wgmma = route == kRouteWgmma;
+  if ((route != kRouteSimt && !wgmma) ||
+      (wgmma && !(bf16 && wgmma_ok(g, p, z)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* n = static_cast<float*>(nll);
   float* c = static_cast<float*>(cor);
   float* l = static_cast<float*>(lse);
-  if (!bf16) return launch_fwd<float>(p, z, n, c, l, g, s);
-  return mma_ok(g, p, z) ? launch_fwd_mma(p, z, n, c, l, g, s)
-                         : launch_fwd<__nv_bfloat16>(p, z, n, c, l, g, s);
+  if (wgmma) return launch_fwd_wgmma(p, z, n, c, l, g, s);
+  return bf16 ? launch_fwd<__nv_bfloat16>(p, z, n, c, l, g, s)
+              : launch_fwd<float>(p, z, n, c, l, g, s);
 }
 
-// Launches the backward's two kernels on `stream` and returns the first
-// launch error (0 on success). g, lse (Tp*K*B,) fp32; p, z and the strides
-// as the forward. Outputs, contiguous and in p's dtype: dp (B, Tp, K, D) and
-// dz (C*T, D). Does not synchronise.
+// Launches the backward's kernels on `stream` and returns the first launch
+// error (0 on success). g, lse (Tp*K*B,) fp32; p, z and the strides as the
+// forward. Outputs, contiguous and in p's dtype: dp (B, Tp, K, D) and dz
+// (C*T, D). route as the forward; the wgmma route also takes `groups`, the
+// dZ pass's row groups (1 <= groups <= ceil(R / 64)), part, a scratch of
+// groups x C*T x D fp32, and rows, preds as a contiguous (R, D) matrix in
+// row order (what its TMA map reads). Does not synchronise.
 int allsteps_nll_bwd(const void* g_nll, const void* lse, const void* p,
-                     const void* z, void* dp, void* dz, int T, int B, int C,
-                     int K, int D, int shift, long long p_sb, long long p_st,
-                     int bf16, int device, void* stream) {
+                     const void* z, void* dp, void* dz, void* part,
+                     const void* rows, int T,
+                     int B, int C, int K, int D, int shift, long long p_sb,
+                     long long p_st, int bf16, int route, int groups,
+                     int device, void* stream) {
   if (T <= K || static_cast<long long>(C) * T > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Geo g{static_cast<long long>(T - K) * K * B, C * T, T, B, K, D,
               T - K, shift, p_sb, p_st};
   if (!geo_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wgmma = route == kRouteWgmma;
+  if ((route != kRouteSimt && !wgmma) ||
+      (wgmma && !(bf16 && wgmma_ok(g, p, z) && part != nullptr &&
+                  rows != nullptr && reinterpret_cast<size_t>(rows) % 16 == 0 &&
+                  groups >= 1 && groups <= tiles(g.R, kBwdVecs) &&
+                  static_cast<long long>(tiles(g.D, kBwdPart)) * groups <=
+                      65535))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gn = static_cast<const float*>(g_nll);
   const float* lf = static_cast<const float*>(lse);
-  if (!bf16) return launch_bwd<float>(gn, lf, p, z, dp, dz, g, s);
-  return mma_ok(g, p, z)
-             ? launch_bwd_mma(gn, lf, p, z, dp, dz, g, s)
-             : launch_bwd<__nv_bfloat16>(gn, lf, p, z, dp, dz, g, s);
+  if (wgmma) {
+    return launch_bwd_wgmma(gn, lf, p, z, rows, dp, dz,
+                            static_cast<float*>(part), groups, g, s);
+  }
+  return bf16 ? launch_bwd<__nv_bfloat16>(gn, lf, p, z, dp, dz, g, s)
+              : launch_bwd<float>(gn, lf, p, z, dp, dz, g, s);
 }
 
 }  // extern "C"

@@ -125,9 +125,9 @@ def load_library() -> ctypes.CDLL:
         + [ptr],
         "same_step_nll_bwd": [ptr] * 7 + [i32] * 6 + [i64] * 4 + [i32] * 2
         + [ptr],
-        "allsteps_nll_fwd": [ptr] * 5 + [i32] * 6 + [i64] * 2 + [i32] * 2
+        "allsteps_nll_fwd": [ptr] * 5 + [i32] * 6 + [i64] * 2 + [i32] * 3
         + [ptr],
-        "allsteps_nll_bwd": [ptr] * 6 + [i32] * 6 + [i64] * 2 + [i32] * 2
+        "allsteps_nll_bwd": [ptr] * 8 + [i32] * 6 + [i64] * 2 + [i32] * 4
         + [ptr],
         "gru_scan_max_hidden": [],
         "flash_attn_fwd": operand * 3 + [ptr] * 2 + attn_tail,

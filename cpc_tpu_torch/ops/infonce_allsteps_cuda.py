@@ -30,20 +30,70 @@ Dispatch is by the device of `preds_v`: a CPU tensor goes through
 `_AllStepsNllPlain` (`allsteps_nll_reference`,
 `allsteps_nll_backward_reference`), a CUDA tensor through
 `_AllStepsNllCuda`, whose two halves are the kernels, which run or raise.
+On the card `allsteps_route` names the kernels and their launch plan
+("wgmma" for the bf16 training path, "simt" for the fp32 wire and what
+16-byte copies do not fit); the route is passed to the C launcher, which
+raises through `check_launch` if it cannot launch: neither route gives way
+to the other.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from cpc_tpu_torch.ops._build import check_launch, load_library
-from cpc_tpu_torch.ops.infonce import check_labels, first_argmax, on_device
+from cpc_tpu_torch.ops.infonce import (WIRE_DTYPES, check_labels,
+                                      first_argmax, on_device)
 from cpc_tpu_torch.ops.infonce_cuda import (check_inputs, check_rows,
                                             nll_function)
 
 PLAIN_SCORE_BYTES = 1 << 30  # fp32 scores a plain version forms at a time
+WGMMA_MAX_D = 576  # 9 panels of 64: what a block's shared memory holds
+BWD_VECTORS = 64   # vectors a wgmma backward block owns, and a swept tile
+BWD_PART = 512     # D a wgmma backward block covers; more D, more blocks
+H100_SMS = 132
+_ROUTE_CODES = {"simt": 0, "wgmma": 1}
+
+
+class AllStepsRoute(NamedTuple):
+    """The kernels the card runs and their launch plan."""
+    route: str    # "wgmma" or "simt"
+    groups: int   # the wgmma dZ pass's row groups (1 on "simt")
+
+
+def allsteps_route(R: int, N: int, D: int, dtype: torch.dtype,
+                   aligned: bool = True, sms: int = H100_SMS
+                   ) -> AllStepsRoute:
+    """Names the kernels `allsteps_nll_forward` and `allsteps_nll_backward`
+    launch on the card for R rows against N candidates of width D in
+    `dtype`, and the dZ pass's row groups G. Pure Python.
+
+    "wgmma": bf16 with D a multiple of 8 and at most WGMMA_MAX_D, pointers
+    and strides 16-byte aligned (`aligned`): the training path, every
+    product on wgmma. "simt": everything else, the fp32 wire (the parity
+    configuration) and bf16 shapes that 16-byte copies or shared memory do
+    not fit: SIMT fp32 products.
+
+    The wgmma dZ pass owns 64-column tiles, one block for each tile and
+    512-wide part of D; where those are fewer than `sms` it splits the R
+    rows into G groups of 64-row tiles, so that the blocks cover every SM
+    (G = 2 at tpu_fast, N = 8 192; 1 where the columns alone fill the card),
+    never more groups than row tiles. Raises on inputs that no kernel
+    takes."""
+    if dtype not in WIRE_DTYPES:
+        raise TypeError(f"preds_v and z_pool must be one of {WIRE_DTYPES}, "
+                        f"got {dtype}")
+    if min(R, N, D, sms) < 1:
+        raise ValueError(f"empty shape (R, N, D) = {(R, N, D)}, sms {sms}")
+    if not (dtype == torch.bfloat16 and D % 8 == 0 and D <= WGMMA_MAX_D
+            and aligned):
+        return AllStepsRoute("simt", 1)
+    per_group = math.ceil(N / BWD_VECTORS) * math.ceil(D / BWD_PART)
+    groups = min(math.ceil(R / BWD_VECTORS), math.ceil(sms / per_group))
+    return AllStepsRoute("wgmma", groups)
 
 
 def _row_chunks(preds_v: torch.Tensor, z_pool: torch.Tensor, shift: int):
@@ -104,11 +154,25 @@ def allsteps_nll_backward_reference(g_nll: torch.Tensor, lse: torch.Tensor,
             dz.to(z_pool.dtype).reshape(z_pool.shape))
 
 
+def _route(preds_v, z_pool) -> AllStepsRoute:
+    B, Tp, K, D = preds_v.shape
+    aligned = (preds_v.data_ptr() % 16 == 0 and z_pool.data_ptr() % 16 == 0
+               and preds_v.stride(0) % 8 == 0 and preds_v.stride(1) % 8 == 0)
+    sms = torch.cuda.get_device_properties(
+        preds_v.device).multi_processor_count
+    return allsteps_route(Tp * K * B, z_pool.shape[0] * z_pool.shape[1], D,
+                          preds_v.dtype, aligned, sms)
+
+
 def _geometry(preds_v, z_pool, shift):
     B, _, K, D = preds_v.shape
     C, T, _ = z_pool.shape
     return (T, B, C, K, D, shift, preds_v.stride(0), preds_v.stride(1),
-            int(preds_v.dtype == torch.bfloat16), preds_v.device.index,
+            int(preds_v.dtype == torch.bfloat16))
+
+
+def _where(preds_v):
+    return (preds_v.device.index,
             torch.cuda.current_stream(preds_v.device).cuda_stream)
 
 
@@ -127,7 +191,8 @@ def _launch_fwd(preds_v, z_pool, shift):
                         device=preds_v.device) for _ in range(3)]
     err = lib.allsteps_nll_fwd(
         preds_v.data_ptr(), z_pool.data_ptr(), *(o.data_ptr() for o in outs),
-        *_geometry(preds_v, z_pool, shift))
+        *_geometry(preds_v, z_pool, shift),
+        _ROUTE_CODES[_route(preds_v, z_pool).route], *_where(preds_v))
     check_launch(lib, err, "allsteps_nll_forward")
     allsteps_nll_forward.launches += 1
     return tuple(outs)
@@ -135,16 +200,28 @@ def _launch_fwd(preds_v, z_pool, shift):
 
 def _launch_bwd(g_nll, lse, preds_v, z_pool, shift):
     _check(preds_v, z_pool, shift)
-    B, Tp, K, _ = preds_v.shape
+    B, Tp, K, D = preds_v.shape
     check_rows(preds_v, (Tp * K * B,), g_nll=g_nll, lse=lse)
     lib = load_library()
     dpreds = torch.empty(preds_v.shape, dtype=preds_v.dtype,
                          device=preds_v.device)
     dz = torch.empty_like(z_pool)
+    plan = _route(preds_v, z_pool)
+    part = rows = None
+    if plan.route == "wgmma":
+        # the dZ pass's fp32 partials, one (N, D) a row group; and preds as
+        # a contiguous (R, D) matrix in row order, which its TMA map reads
+        # (91 MB at tpu_fast: one copy)
+        part = torch.empty((plan.groups, *dz.shape), dtype=torch.float32,
+                           device=dz.device)
+        rows = preds_v.permute(1, 2, 0, 3).reshape(-1, D).contiguous()
     err = lib.allsteps_nll_bwd(
         g_nll.data_ptr(), lse.data_ptr(), preds_v.data_ptr(),
         z_pool.data_ptr(), dpreds.data_ptr(), dz.data_ptr(),
-        *_geometry(preds_v, z_pool, shift))
+        None if part is None else part.data_ptr(),
+        None if rows is None else rows.data_ptr(),
+        *_geometry(preds_v, z_pool, shift), _ROUTE_CODES[plan.route],
+        plan.groups, *_where(preds_v))
     check_launch(lib, err, "allsteps_nll_backward")
     allsteps_nll_backward.launches += 1
     return dpreds, dz
@@ -163,8 +240,9 @@ def allsteps_nll_backward(g_nll: torch.Tensor, lse: torch.Tensor,
                           preds_v: torch.Tensor, z_pool: torch.Tensor,
                           shift: int):
     """(dpreds, dz). CPU tensors run `allsteps_nll_backward_reference`; CUDA
-    tensors run the two kernels, and `allsteps_nll_backward.launches` counts
-    the launches."""
+    tensors run the kernels (dP, dZ and, on "wgmma", the finishing sum of
+    dZ's row groups), and `allsteps_nll_backward.launches` counts one a
+    call."""
     return on_device(preds_v, allsteps_nll_backward_reference, _launch_bwd,
                      g_nll, lse, preds_v, z_pool, shift)
 

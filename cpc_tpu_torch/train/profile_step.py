@@ -54,9 +54,14 @@ STAGES = (
     ("same-step InfoNCE forward kernel", ("same_step_fwd",)),
     ("same-step InfoNCE backward kernels",
      ("same_step_delta", "same_step_dz", "same_step_dp")),
-    ("all-steps InfoNCE forward kernel", ("allsteps_fwd",)),
-    ("all-steps InfoNCE backward dP kernel", ("allsteps_dp",)),
-    ("all-steps InfoNCE backward dZ kernel", ("allsteps_dz",)),
+    # the wgmma route (bf16 models), then the SIMT route's kernels; dZ's
+    # finishing kernel adds its row groups' partials
+    ("all-steps InfoNCE forward kernel",
+     ("allsteps_fwd_wgmma", "allsteps_fwd_kernel")),
+    ("all-steps InfoNCE backward dP kernel",
+     ("allsteps_dp_wgmma", "allsteps_dp_kernel")),
+    ("all-steps InfoNCE backward dZ kernels",
+     ("allsteps_dz_wgmma", "allsteps_dz_finish", "allsteps_dz_kernel")),
     ("flash attention forward kernel", ("flash_fwd",)),
     ("flash attention one-pass backward kernels (flash16)", ("flash_bwd",)),
     ("flash attention backward dQ kernel", ("flash_dq",)),

@@ -43,6 +43,14 @@ from cpc_tpu_torch.train.profile_step import OTHER, main, stage_of
     ("void allsteps_dp_kernel<__nv_bfloat16>(...)",
      "all-steps InfoNCE backward dP"),
     ("void allsteps_dz_kernel<float>(...)", "all-steps InfoNCE backward dZ"),
+    ("(anonymous namespace)::allsteps_fwd_wgmma_kernel(__nv_bfloat16 const*, "
+     "...)", "all-steps InfoNCE forward"),
+    ("(anonymous namespace)::allsteps_dp_wgmma_kernel(float const*, ...)",
+     "all-steps InfoNCE backward dP"),
+    ("(anonymous namespace)::allsteps_dz_wgmma_kernel(float const*, ...)",
+     "all-steps InfoNCE backward dZ"),
+    ("(anonymous namespace)::allsteps_dz_finish_kernel(float4 const*, ...)",
+     "all-steps InfoNCE backward dZ"),
     ("void flash_fwd_mma_kernel<32>(...)", "flash attention forward"),
     ("void flash_fwd_kernel<float, false, 1>(...)", "flash attention forward"),
     ("void flash_dq_mma_kernel<32>(...)", "flash attention backward dQ"),
