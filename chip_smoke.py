@@ -109,7 +109,20 @@ Phases, in order; any failure exits non-zero:
    same step composed from the plain versions, `flash16` and `flash`: loss,
    per-k accuracy, grad_norm, the grads of an attention query weight and of
    in_proj; then the steady step time and audio-s/s of `xla`, `flash` and
-   `flash16`.
+   `flash16`;
+14. the conv pyramid forward against its plain version on the same CUDA
+   tensors: tpu_fast's 5 layers at (B, S) = (64, 20 480) in bf16 and fp32,
+   (16, 163 840) in bf16, (2, 20 000) in bf16 (no length fits a tile), and
+   (1, 20) in bf16 (layers 3-5 read phases with no rows), and a narrow
+   3-layer pyramid at (3, 3 205) in bf16 and fp32; each case's route against
+   `pyramid_route` ("wgmma" for bf16, "simt" for fp32), twice for
+   bit-identical results, the first and last two latents held on their own
+   (SAME padding); then, at both full-width shapes in bf16, the forward,
+   each launch apart, the weights' repack apart, plain, the bound and the
+   F.conv1d chain on cuDNN as the yardstick; fp32 at tpu_fast;
+15. `encoder.use_pallas=true` through `extract_features` (the forward once
+   a batch, z against the cuDNN chain) and 10 CLI steps;
+16. one `use_pallas` step through the kernels against the plain step.
 
 It prints a JSON line of the kernels it checked, each with its launches on
 its main path, its error against its plain version, its time, its plain
@@ -146,7 +159,8 @@ from cpc_tpu_torch.ops.attention_cuda import (
     flash_attention_forward_reference, launch_floor, launch_shape, row_dot)
 from cpc_tpu_torch.ops.conv_cuda import (_ConvPyramidPlain, conv_chain,
                                          conv_pyramid_forward,
-                                         conv_pyramid_reference)
+                                         conv_pyramid_reference, pack_weights,
+                                         pyramid_launches, pyramid_route)
 from cpc_tpu_torch.ops.dsp import prepare_waveform
 from cpc_tpu_torch.ops.gru_cuda import (_GruScanPlain,
                                         cluster_exchange_probe, gru_route,
@@ -1358,7 +1372,13 @@ PYRAMID_CASES = [(PYRAMID_FULL, 64, 20480, torch.bfloat16),
                  (PYRAMID_FULL, 64, 20480, torch.float32),
                  (PYRAMID_FULL, 16, 163840, torch.bfloat16),
                  (PYRAMID_NARROW, 3, 3205, torch.bfloat16),
-                 (PYRAMID_NARROW, 3, 3205, torch.float32)]
+                 (PYRAMID_NARROW, 3, 3205, torch.float32),
+                 # lengths that fit no tile: T = 4000, 1000, 500, 250, 125
+                 (PYRAMID_FULL, 2, 20000, torch.bfloat16),
+                 # T = 4, 1, 1, 1, 1: layers 3-5 read a phase with no rows
+                 (PYRAMID_FULL, 1, 20, torch.bfloat16)]
+# the two full-width shapes timed in bf16: tpu_fast, and its long snippet
+PYRAMID_TIMED = [(64, 20480), (16, 163840)]
 # z relative to max(1, max |plain|). fp32 (TF32 off) differs by summation
 # order over a contraction of up to 4 096 terms. In bf16 a layer's output
 # lands one bf16 rounding (2**-8 of the entry) apart where its fp32 sum is
@@ -1385,13 +1405,52 @@ def pyramid_inputs(spec, B, S, dtype, seed):
     return dev(rng.standard_normal((B, S))), weights, biases, kernels, strides
 
 
-def pyramid_flops(spec, B, S) -> float:
+def pyramid_flops(spec, B, S, layers=None) -> float:
     flops, c_in, t = 0.0, 1, S
-    for ch, k, s in zip(*spec):
+    for i, (ch, k, s) in enumerate(zip(*spec)):
         t = -(-t // s)
-        flops += 2.0 * B * t * k * c_in * ch
+        if layers is None or i in layers:
+            flops += 2.0 * B * t * k * c_in * ch
         c_in = ch
     return flops
+
+
+def pyramid_times_ms(spec, B, S, card: str) -> dict:
+    """The bf16 forward at (B, S): the whole, each launch apart, the
+    weights' repack apart, plain, the bound and the cuDNN chain."""
+    args = pyramid_inputs(spec, B, S, torch.bfloat16, seed=60)
+    x, weights, biases, kernels, strides = args
+    packed = pack_weights(weights)
+    route, launches = pyramid_launches(x, packed, biases, kernels, strides)
+    inputs = [x]
+    for fn in launches[:-1]:
+        inputs.append(fn(inputs[-1]))
+    z = launches[-1](inputs[-1])
+    flops = pyramid_flops(spec, B, S)
+    out = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: conv_pyramid_forward(*args)),
+        "plain_ms": cuda_ms(lambda: conv_pyramid_reference(*args), reps=5),
+        # the yardstick, used nowhere on the kernel's path: five F.conv1d
+        # calls on cuDNN and the copy to (B, T, C)
+        "library_ms": cuda_ms(lambda: conv_chain(*args).contiguous()),
+        "repack_ms": cuda_ms(lambda: pack_weights(weights)),
+        "launch_ms": [cuda_ms(lambda fn=fn, h=h: fn(h))
+                      for fn, h in zip(launches, inputs)],
+        **bound([x, *weights, *biases, z], flops)}
+    split = ", ".join(
+        f"layers {'+'.join(str(i + 1) for i in launch.layers)} {ms:.4f} ms "
+        f"({pyramid_flops(spec, B, S, launch.layers) / ms / 1e9:.1f} "
+        f"TFLOP/s)" for launch, ms in zip(route.launches, out["launch_ms"]))
+    print(f"time conv_pyramid_forward at {(B, S)} bf16 ({route.route}) on "
+          f"{card}: {out['ms']:.4f} ms with the weights' repack "
+          f"({flops / out['ms'] / 1e9:.1f} TFLOP/s); {split}; the repack "
+          f"(a copy a layer) {out['repack_ms']:.4f} ms; plain "
+          f"{out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']}; the F.conv1d chain on cuDNN with its "
+          f"transposes (yardstick only) {out['library_ms']:.4f} ms",
+          flush=True)
+    return out
 
 
 def phase14_kernels(card: str) -> dict:
@@ -1402,11 +1461,15 @@ def phase14_kernels(card: str) -> dict:
     with torch.inference_mode():
         for n, (spec, B, S, dtype) in enumerate(PYRAMID_CASES):
             args = pyramid_inputs(spec, B, S, dtype, seed=60 + n)
+            channels, kernels, strides = spec
+            route = pyramid_route(kernels, strides, channels, B, S, dtype)
+            want_route = "wgmma" if dtype == torch.bfloat16 else "simt"
+            what = f"{spec[0]} x {(B, S)} {str(dtype)[6:]}"
+            check(route.route == want_route, f"{what}: route {route.route}")
             z = conv_pyramid_forward(*args)
             again = conv_pyramid_forward(*args)
             want = conv_pyramid_reference(*args)
             torch.cuda.synchronize()
-            what = f"{spec[0]} x {(B, S)} {str(dtype)[6:]}"
             check(z.dtype == dtype and z.shape == want.shape
                   and z.is_contiguous(), f"{what}: {z.dtype} {z.shape}")
             check(bool(torch.isfinite(z.float()).all()), f"{what}: non-finite")
@@ -1418,7 +1481,8 @@ def phase14_kernels(card: str) -> dict:
             edges = max(rel_err(z[:, :2], want[:, :2]),
                         rel_err(z[:, -2:], want[:, -2:]))
             max_err = max(max_err, abs_err)
-            print(f"{name} vs plain {what} -> {tuple(z.shape)}: max abs err "
+            print(f"{name} ({route.route}, {len(route.launches)} launches) "
+                  f"vs plain {what} -> {tuple(z.shape)}: max abs err "
                   f"{abs_err:.3e}, relative to max(1, max |plain|) {err:.3e}, "
                   f"the first and last two latents of each snippet "
                   f"{edges:.3e} (tol {tol:.0e}), max |plain| "
@@ -1427,33 +1491,16 @@ def phase14_kernels(card: str) -> dict:
             check(err <= tol and edges <= tol,
                   f"{what}: error {err}, at the edges {edges} > {tol}")
 
-        spec, B, S, dtype = PYRAMID_CASES[0]
-        args = pyramid_inputs(spec, B, S, dtype, seed=60)
-        z = conv_pyramid_forward(*args)
-        out = {name: {
-            "max_abs_err": max_err,
-            "ms": cuda_ms(lambda: conv_pyramid_forward(*args)),
-            "plain_ms": cuda_ms(lambda: conv_pyramid_reference(*args),
-                                reps=5),
-            # the yardstick, used nowhere on the kernel's path: five
-            # F.conv1d calls on cuDNN and the copy to (B, T, C)
-            "library_ms": cuda_ms(lambda: conv_chain(*args).contiguous()),
-            **bound([args[0], *args[1], *args[2], z],
-                    pyramid_flops(spec, B, S))}}
+        spec = PYRAMID_FULL
+        times = [pyramid_times_ms(spec, B, S, card) for B, S in PYRAMID_TIMED]
+        B, S = PYRAMID_TIMED[0]
         fp32 = pyramid_inputs(spec, B, S, torch.float32, seed=60)
         fp32_ms = cuda_ms(lambda: conv_pyramid_forward(*fp32), reps=5)
-        long_args = pyramid_inputs(*PYRAMID_CASES[2], seed=62)
-        long_ms = cuda_ms(lambda: conv_pyramid_forward(*long_args))
-    m = out[name]
-    print(f"time {name} at {(B, S)} bf16 on {card}: kernels with the "
-          f"weights' repack {m['ms']:.4f} ms "
-          f"({pyramid_flops(spec, B, S) / m['ms'] / 1e9:.1f} TFLOP/s), plain "
-          f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by "
-          f"{m['bound_by']}, the F.conv1d chain on cuDNN with its "
-          f"transposes (yardstick only) {m['library_ms']:.4f} ms; fp32 on "
-          f"the SIMT pipe {fp32_ms:.4f} ms; the long snippet (16, 163840) "
-          f"bf16 {long_ms:.4f} ms", flush=True)
-    return out
+    print(f"time {name} at {(B, S)} fp32 on the SIMT pipe on {card}: "
+          f"{fp32_ms:.4f} ms", flush=True)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return {name: {"max_abs_err": max_err,
+                   **{k: times[0][k] for k in keys}}}
 
 
 def pyramid_slice(card: str) -> dict:

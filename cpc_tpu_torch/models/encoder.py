@@ -143,8 +143,12 @@ class ConvEncoder(nn.Module):
                     "relu only; disable encoder.use_pallas for this config")
             convs = [getattr(self, f"conv{i}")
                      for i in range(len(cfg.kernels))]
+            # the cast writes the kernels' (C_out, k, C_in) layout, so that
+            # it is the one copy of a weight a forward makes
             return fused_conv_encoder(
-                x, [c.weight.to(self.dtype) for c in convs],
+                x, [c.weight.permute(0, 2, 1).to(
+                    self.dtype, memory_format=torch.contiguous_format
+                ).permute(0, 2, 1) for c in convs],
                 [c.bias.to(self.dtype) for c in convs], cfg.kernels,
                 cfg.strides)
         h = x[:, None, :]  # (B, 1, T)

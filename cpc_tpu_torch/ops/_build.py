@@ -115,6 +115,7 @@ def load_library() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     operand = [ptr, i64, i64, i64]  # a tensor and three of its strides
     attn_tail = [i32] * 4 + [ctypes.c_float] + [i32] * 3 + [ptr]
+    plan = ctypes.POINTER(i32)  # a launch plan, ints
     signatures = {
         "gru_scan_fwd": [ptr] * 5 + [i32] * 6 + [ptr],
         "gru_scan_bwd": [ptr] * 14 + [i32] * 7 + [ptr],
@@ -136,9 +137,8 @@ def load_library() -> ctypes.CDLL:
         "flash_attn_launch_shape": [i32] * 6 + [ptr],
         "flash_attn_dq": operand * 4 + [ptr] * 3 + attn_tail,
         "flash_attn_dkv": operand * 4 + [ptr] * 4 + attn_tail,
-        "conv_pyramid_layer": [ptr] * 4 + [i32] * 10 + [ptr],
-        "conv_pyramid_fused": [ptr] * 6 + [i32] * 14 + [ptr],
-        "conv_pyramid_on_tensor_cores": [i32] * 6,
+        "conv_pyramid_layer": [ptr] * 4 + [i32] * 9 + [plan, i32, i32, ptr],
+        "conv_pyramid_fused": [ptr] * 6 + [i32] * 13 + [plan, i32, i32, ptr],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

@@ -17,8 +17,10 @@ Layer i is a Conv1d of kernel k_i and stride s_i with flax's SAME padding
 kernel's: products of operands in the compute dtype, fp32 sums, the bias
 added in fp32, ReLU, one rounding to the compute dtype a layer. The weights
 keep the encoder module's (out, in, k) layout (the JAX function takes flax's
-(k, in, out)), so a `state_dict` serves both routes; the launcher repacks
-them to (out, k, in) each call, which is part of the forward's time.
+(k, in, out)), so a `state_dict` serves both routes; `pack_weights` repacks
+them to (out, k, in) each call, one copy a layer at most and none for a
+weight that is already such a view (the encoder casts its parameters
+straight into that layout), which is part of the forward's time.
 
 Three plain versions stand beside the kernels:
 `conv_pyramid_reference` repeats the kernels' arithmetic tap by tap (what
@@ -34,12 +36,18 @@ kernels mask ragged lengths by bounds.
 
 Dispatch is by the device of `x`: a CPU tensor goes through
 `_ConvPyramidPlain`, a CUDA tensor through `_ConvPyramidCuda`, whose forward
-is the kernels, which run or raise.
+is the kernels, which run or raise. On the card `pyramid_route` names the
+kernels ("wgmma" for bf16 with channels in multiples of 8, "simt" for fp32
+and the rest) and plans each launch (grid, tile, ring stages, shared
+memory, and the tap table the TMA maps are read with); the plan is passed
+to the C launchers, which raise through `check_launch` on a plan they
+cannot run: neither route gives way to the other.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import ctypes
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -132,49 +140,224 @@ def _check(x, weights, biases, kernels, strides) -> None:
         c_in = w.shape[0]
 
 
-def _launch(x, weights, biases, kernels, strides):
+# What the C launchers of csrc/conv_pyramid.cu compute, mirrored so that the
+# plan is made here (and read by the CPU tests) and checked there.
+WGMMA_TILE = (128, 128)  # (output rows, output channels) a block
+SIMT_TILE = (64, 64)
+ROW_BYTES = 128          # a slab's row: 64 input channels of bf16
+WGMMA_STAGES = (2, 6)    # the ring's fewest and most slots
+MAX_PHASES = 8           # strides of layers 3..L on "wgmma"
+MAX_TAPS = 32            # kernel widths of layers 2..L on "wgmma"
+MAX_LAYER1_TAPS = 16     # layer 1's kernel: one k16 step
+MAX_SMEM = 227 * 1024
+SIMT_STATIC_SMEM = 2 * 16 * 65 * 4  # cpc::TileSmem
+EMPTY_ROW = -(1 << 30)   # a phase with no rows: every box row out of range
+_ROUTE_CODES = {"simt": 0, "wgmma": 1}
+
+
+class PyramidLaunch(NamedTuple):
+    """One kernel launch of the forward and its plan."""
+    layers: Tuple[int, ...]  # (0, 1) fused, (i,) one layer, 0-based
+    grid: Tuple[int, int, int]  # (channel tiles, row tiles, B)
+    tile: Tuple[int, int]       # (output rows, output channels) a block
+    stages: int                 # slots of the TMA ring (0 on "simt")
+    smem: int                   # dynamic shared memory, bytes
+    # tap j's (phase, row offset): on layers 3..L input row s t + j - pad
+    # is row t + offset of phase (j - pad) mod s, offset floor((j - pad) /
+    # s), EMPTY_ROW where the phase has no rows; fused, layer 2's tap j
+    # reads the slab's slots phase RP + offset.., (j mod s, j // s). Empty
+    # on "simt".
+    taps: Tuple[Tuple[int, int], ...]
+
+
+class PyramidRoute(NamedTuple):
+    """The kernels the card runs for a pyramid, and their launches."""
+    route: str  # "wgmma" or "simt"
+    launches: Tuple[PyramidLaunch, ...]
+
+
+class _Layer(NamedTuple):
+    t_in: int
+    c_in: int
+    k: int
+    s: int
+    pad: int
+    t_out: int
+    c_out: int
+
+
+def _geometry(kernels, strides, channels, S) -> List[_Layer]:
+    layers, t, c_in = [], S, 1
+    for k, s, c in zip(kernels, strides, channels):
+        t_out = -(-t // s)
+        layers.append(_Layer(t, c_in, k, s, same_padding(t, k, s)[0], t_out,
+                             c))
+        t, c_in = t_out, c
+    return layers
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _wgmma_launch(layers, ls: Sequence[_Layer], B: int):
+    """The "wgmma" plan of one launch, or None if its kernel cannot take
+    it."""
+    fused = len(layers) == 2
+    g = ls[-1]
+    if not (g.k <= MAX_TAPS and (g.s <= MAX_PHASES or fused)
+            and (not fused or ls[0].k <= MAX_LAYER1_TAPS)):
+        return None
+    tm, tn = WGMMA_TILE
+    slot = (tn if fused else tm + tn) * ROW_BYTES
+    fixed = 1024
+    if fused:
+        rows_a = g.s * (tm + (g.k - 1) // g.s)
+        window = (rows_a - 1) * ls[0].s + ls[0].k
+        # the slab buffers, a 16-byte row for the generator's rows past a
+        # slab, then the waveform window and layer 1's weights and bias,
+        # each rounded up to 16 bytes
+        fixed += 2 * rows_a * ROW_BYTES + 16 + sum(
+            _cdiv(n * 2, 16) * 16
+            for n in (window, ls[0].c_out * ls[0].k, ls[0].c_out))
+        taps = tuple((j % g.s, j // g.s) for j in range(g.k))
+    else:
+        taps = []
+        for j in range(g.k):
+            phase = (j - g.pad) % g.s
+            taps.append((phase, (j - g.pad) // g.s if phase < g.t_in
+                         else EMPTY_ROW))
+        taps = tuple(taps)
+    stages = min(WGMMA_STAGES[1], (MAX_SMEM - fixed) // slot)
+    grid = (_cdiv(g.c_out, tn), _cdiv(g.t_out, tm), B)
+    if stages < WGMMA_STAGES[0] or grid[1] > 65535 or B > 65535:
+        return None
+    return PyramidLaunch(tuple(layers), grid, WGMMA_TILE, stages,
+                         fixed + stages * slot, taps)
+
+
+def _simt_launch(layers, ls: Sequence[_Layer], B: int) -> PyramidLaunch:
+    g = ls[-1]
+    smem = 0
+    if len(layers) == 2:
+        smem = (((SIMT_TILE[0] - 1) * g.s + g.k - 1) * ls[0].s
+                + ls[0].k) * 4
+    if smem + SIMT_STATIC_SMEM > MAX_SMEM or B > 65535 or _cdiv(
+            g.t_out, SIMT_TILE[0]) > 65535:
+        raise ValueError(f"no conv pyramid kernel takes layers {layers} "
+                         f"(kernel {g.k}, stride {g.s}, batch {B}): "
+                         f"{smem} bytes of waveform window")
+    return PyramidLaunch(tuple(layers),
+                         (_cdiv(g.c_out, SIMT_TILE[1]),
+                          _cdiv(g.t_out, SIMT_TILE[0]), B),
+                         SIMT_TILE, 0, smem, ())
+
+
+def pyramid_route(kernels: Sequence[int], strides: Sequence[int],
+                  channels: Sequence[int], B: int, S: int,
+                  dtype: torch.dtype, aligned: bool = True) -> PyramidRoute:
+    """Names the kernels `conv_pyramid_forward` launches on the card for x
+    (B, S) in `dtype` through layers of these kernels, strides and output
+    channels, and plans each launch: layers 1 and 2 in one, then one a
+    layer (a one-layer pyramid: one). Pure Python.
+
+    "wgmma": bf16 with every layer's output channels a multiple of 8 (so
+    every input of layers 2..L too), 16-byte aligned weights (`aligned`),
+    at least two layers, layer 1's kernel at most 16, later kernels at most
+    32 and strides of layers 3..L at most 8, each launch's ring of at least
+    two slots within 227 KB of shared memory. "simt": everything else,
+    fp32 (the parity configuration) above all. Raises on what no kernel
+    takes."""
+    if dtype not in WIRE_DTYPES:
+        raise TypeError(f"x must be one of {WIRE_DTYPES}, got {dtype}")
+    L = len(kernels)
+    if not (L >= 1 and len(strides) == len(channels) == L):
+        raise ValueError(f"{L} kernels, {len(strides)} strides, "
+                         f"{len(channels)} channels")
+    if min(B, S, *kernels, *strides, *channels) < 1:
+        raise ValueError(f"empty shape: B {B}, S {S}, kernels {kernels}, "
+                         f"strides {strides}, channels {channels}")
+    ls = _geometry(kernels, strides, channels, S)
+    groups = [(0,)] if L == 1 else [(0, 1)] + [(i,) for i in range(2, L)]
+    if (dtype == torch.bfloat16 and aligned and L >= 2
+            and all(c % 8 == 0 for c in channels)):
+        plans = [_wgmma_launch(g, [ls[i] for i in g], B) for g in groups]
+        if all(plans):
+            return PyramidRoute("wgmma", tuple(plans))
+    return PyramidRoute("simt", tuple(
+        _simt_launch(g, [ls[i] for i in g], B) for g in groups))
+
+
+def _plan_array(route: str, launch: PyramidLaunch):
+    """The plan as the C launcher reads it: route, grid, tile, stages,
+    shared memory, taps n, then (phase, row offset) a tap."""
+    flat = [_ROUTE_CODES[route], *launch.grid, *launch.tile, launch.stages,
+            launch.smem, len(launch.taps)]
+    for tap in launch.taps:
+        flat.extend(tap)
+    return (ctypes.c_int * len(flat))(*flat), len(flat)
+
+
+def pack_weights(weights: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The weights (C_out, C_in, k) as the kernels read them, (C_out, k,
+    C_in) contiguous: a layer's copy, or none where the weight is already
+    a (C_out, C_in, k) view of such a tensor."""
+    return [w.permute(0, 2, 1).contiguous() for w in weights]
+
+
+def pyramid_launches(x, packed, biases, kernels, strides
+                     ) -> Tuple[PyramidRoute,
+                                List[Callable[[torch.Tensor], torch.Tensor]]]:
+    """The route of a forward and one function a launch: fn(h) launches the
+    kernel on its input h (x for the first, else the previous launch's
+    output) and returns its output (B, T, C). `packed` as `pack_weights`
+    returns it."""
     lib = load_library()
     B, S = x.shape
-    dev = (int(x.dtype == torch.bfloat16), x.device.index,
-           torch.cuda.current_stream(x.device).cuda_stream)
-    # (C_out, k, C_in): a channel's whole contraction contiguous
-    packed = [w.permute(0, 2, 1).contiguous() for w in weights]
+    dev = (int(x.dtype == torch.bfloat16),)
+    tail = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    channels = [w.shape[0] for w in packed]
     biases = [b.contiguous() for b in biases]
-    geo: List[Tuple[int, ...]] = []  # (k, s, left pad, T_out, C_out) a layer
-    t = S
-    for w, k, s in zip(weights, kernels, strides):
-        left, _ = same_padding(t, k, s)
-        t = -(-t // s)
-        geo.append((k, s, left, t, w.shape[0]))
+    ls = _geometry(kernels, strides, channels, S)
+    aligned = all(w.data_ptr() % 16 == 0 for w in packed)
+    route = pyramid_route(kernels, strides, channels, B, S, x.dtype, aligned)
 
-    def empty(i):
-        return torch.empty((B, geo[i][3], geo[i][4]), dtype=x.dtype,
-                           device=x.device)
+    def one(launch: PyramidLaunch):
+        plan, n = _plan_array(route.route, launch)
+        g = ls[launch.layers[-1]]
+        what = (f"conv_pyramid_forward ({route.route}, layers "
+                f"{'+'.join(str(i + 1) for i in launch.layers)})")
 
-    if len(geo) == 1:
-        k, s, pad, t_out, c_out = geo[0]
-        h = empty(0)
-        err = lib.conv_pyramid_layer(
-            x.data_ptr(), packed[0].data_ptr(), biases[0].data_ptr(),
-            h.data_ptr(), B, S, 1, t_out, c_out, k, s, pad, *dev)
-        check_launch(lib, err, "conv_pyramid_forward (the single layer)")
-    else:
-        (k1, s1, pad1, t1, c1), (k2, s2, pad2, t2, c2) = geo[:2]
-        h = empty(1)
-        err = lib.conv_pyramid_fused(
-            x.data_ptr(), packed[0].data_ptr(), biases[0].data_ptr(),
-            packed[1].data_ptr(), biases[1].data_ptr(), h.data_ptr(), B, S,
-            k1, s1, pad1, t1, c1, k2, s2, pad2, t2, c2, *dev)
-        check_launch(lib, err, "conv_pyramid_forward (layers 1 and 2)")
-        for i in range(2, len(geo)):
-            k, s, pad, t_out, c_out = geo[i]
-            out = empty(i)
-            err = lib.conv_pyramid_layer(
-                h.data_ptr(), packed[i].data_ptr(), biases[i].data_ptr(),
-                out.data_ptr(), B, geo[i - 1][3], geo[i - 1][4], t_out, c_out,
-                k, s, pad, *dev)
-            check_launch(lib, err, f"conv_pyramid_forward (layer {i + 1})")
-            h = out
+        def fn(h):
+            out = torch.empty((B, g.t_out, g.c_out), dtype=x.dtype,
+                              device=x.device)
+            if len(launch.layers) == 2:
+                g1 = ls[0]
+                err = lib.conv_pyramid_fused(
+                    h.data_ptr(), packed[0].data_ptr(), biases[0].data_ptr(),
+                    packed[1].data_ptr(), biases[1].data_ptr(),
+                    out.data_ptr(), B, S, g1.k, g1.s, g1.pad, g1.t_out,
+                    g1.c_out, g.k, g.s, g.pad, g.t_out, g.c_out, *dev, plan,
+                    n, *tail)
+            else:
+                i = launch.layers[0]
+                err = lib.conv_pyramid_layer(
+                    h.data_ptr(), packed[i].data_ptr(), biases[i].data_ptr(),
+                    out.data_ptr(), B, g.t_in, g.c_in, g.t_out, g.c_out, g.k,
+                    g.s, g.pad, *dev, plan, n, *tail)
+            check_launch(lib, err, what)
+            return out
+        return fn
+
+    return route, [one(launch) for launch in route.launches]
+
+
+def _launch(x, weights, biases, kernels, strides):
+    _, launches = pyramid_launches(x, pack_weights(weights), biases, kernels,
+                                   strides)
+    h = x
+    for fn in launches:
+        h = fn(h)
     conv_pyramid_forward.launches += 1
     return h
 
@@ -184,8 +367,9 @@ def conv_pyramid_forward(x: torch.Tensor, weights: Sequence[torch.Tensor],
                          kernels: Sequence[int],
                          strides: Sequence[int]) -> torch.Tensor:
     """z (B, T_L, C_L). A CPU tensor runs `conv_pyramid_reference`; a CUDA
-    tensor runs the kernels (layers 1 and 2 in one launch, then one launch a
-    layer), and `conv_pyramid_forward.launches` counts the forwards."""
+    tensor runs the kernels `pyramid_route` names (layers 1 and 2 in one
+    launch, then one launch a layer), and `conv_pyramid_forward.launches`
+    counts the forwards."""
     args = (x, list(weights), list(biases), tuple(kernels), tuple(strides))
     _check(*args)
     if x.device.type == "cpu":
@@ -215,8 +399,14 @@ def _pyramid_function(name: str, forward_fn):
         def backward(ctx, g):
             L = len(ctx.kernels)
             with torch.enable_grad():
-                leaves = [t.detach().requires_grad_()
-                          for t in ctx.saved_tensors]
+                # standard strides: the encoder's weights arrive as (C_out,
+                # C_in, k) views of their packed copies, whose strides (layer
+                # 1's (10, 1, 1) too, though .contiguous() keeps it) send
+                # cuDNN to channels-last kernels and the chain's elementwise
+                # ops to strided ones (PERF.md §5, §6)
+                leaves = [t.detach().clone(
+                    memory_format=torch.contiguous_format).requires_grad_()
+                    for t in ctx.saved_tensors]
                 z = conv_chain(leaves[0], leaves[1:L + 1], leaves[L + 1:],
                                ctx.kernels, ctx.strides)
             wanted = [i for i, need in enumerate(

@@ -703,15 +703,20 @@ def test_conv_pyramid_kernel_matches_plain(case, dtype):
 
 
 def test_conv_pyramid_route_by_shape():
-    from cpc_tpu_torch.ops._build import load_library
-    lib = load_library()
-    # Cin, Cout, k, s, k1 (0: not fused), s1
-    assert lib.conv_pyramid_on_tensor_cores(512, 512, 8, 4, 10, 5) == 1
-    assert lib.conv_pyramid_on_tensor_cores(512, 512, 4, 2, 0, 0) == 1
-    assert lib.conv_pyramid_on_tensor_cores(32, 48, 4, 2, 0, 0) == 1
-    assert lib.conv_pyramid_on_tensor_cores(20, 33, 8, 4, 10, 5) == 0  # odd
-    assert lib.conv_pyramid_on_tensor_cores(8, 16, 1, 1, 0, 0) == 0  # k = 1
-    assert lib.conv_pyramid_on_tensor_cores(512, 512, 8, 4, 20, 5) == 0
+    from cpc_tpu_torch.ops.conv_cuda import pyramid_route
+
+    def route(channels, kernels, strides):
+        return pyramid_route(kernels, strides, channels, 4, 20480,
+                             torch.bfloat16).route
+    # the shapes the C export was asked about, as pyramids: layers 1 + 2
+    # fused, a later layer, the narrow spec, odd channels, a kernel of one,
+    # a layer-1 kernel beyond one k16 step
+    assert route((512, 512), (10, 8), (5, 4)) == "wgmma"
+    assert route((512, 512, 512), (10, 8, 4), (5, 4, 2)) == "wgmma"
+    assert route((32, 32, 48), (10, 8, 4), (5, 4, 2)) == "wgmma"
+    assert route((20, 33), (10, 8), (5, 4)) == "simt"  # odd
+    assert route((8, 8, 16), (10, 8, 1), (5, 4, 1)) == "wgmma"  # k = 1
+    assert route((512, 512), (20, 8), (5, 4)) == "simt"
 
 
 def test_conv_pyramid_rejects_what_it_does_not_take():

@@ -56,9 +56,9 @@ from cpc_tpu_torch.train.profile_step import OTHER, main, stage_of
     ("void flash_dq_mma_kernel<32>(...)", "flash attention backward dQ"),
     ("void flash_dkv_kernel<__nv_bfloat16, false, 1>(...)",
      "flash attention backward dK/dV"),
-    ("void (anonymous namespace)::pyramid_mma_kernel<true>(__nv_bfloat16 "
+    ("void (anonymous namespace)::pyramid_wgmma_kernel<true>(__nv_bfloat16 "
      "const*, ...)", "conv pyramid forward"),
-    ("void (anonymous namespace)::pyramid_mma_kernel<false>(...)",
+    ("void (anonymous namespace)::pyramid_wgmma_kernel<false>(...)",
      "conv pyramid forward"),
     ("void (anonymous namespace)::pyramid_simt_kernel<float, true>(...)",
      "conv pyramid forward"),
