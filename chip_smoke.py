@@ -61,11 +61,16 @@ Phases, in order; any failure exits non-zero:
    (16, 1024, 16, 12, 512) (194 304 rows against 16 384) and at a ragged
    (5, 37, 9, 4, 72) with shift 2 (R, N and D no multiple of a tile): nll,
    lse, correct, dpreds, dz, the backward twice for bit-identical results,
-   and each case's all-steps route (wgmma for bf16, SIMT for fp32) against
-   `allsteps_route`; then kernel and plain times in bf16, the same-step
-   kernels at tpu_fast's shape, the all-steps kernels at both full-width
-   shapes with their achieved TFLOP/s and, as a yardstick of another
-   function, the score product alone on cuBLAS;
+   each case's same-step route ("mma" for bf16, "simt" for fp32) against
+   `same_step_route` and all-steps route (wgmma for bf16, SIMT for fp32)
+   against `allsteps_route`; the bf16 same-step dpreds and dz also on their
+   shares of bf16-rounding flips against plain, a check held once against
+   the same-step backward built with delta in two bf16 terms, which must
+   fail it; then kernel and plain times in bf16 at both full-width shapes,
+   the same-step kernels over a CUDA-graph replay beside their SIMT kernels
+   on the same inputs (the route forced), the all-steps kernels with their
+   achieved TFLOP/s and, as a yardstick of another function, the score
+   product alone on cuBLAS;
 9. those two paths through the entry point: `cpc_tpu_torch.train.cli.main`
    trains `tpu_fast` at full width for 10 steps with
    `--set model.loss.negatives=all_steps`, then with
@@ -91,7 +96,10 @@ Phases, in order; any failure exits non-zero:
    the library yardstick, an empty kernel at the forward's and at the
    one-pass backward's grid, block and shared memory over the same replay
    as the launch floor, the forward that the tiled one replaced, and the
-   one-pass backward on its other route;
+   one-pass backward on its other route; and, as the `flash` route's
+   yardstick of the same function (fp32 P), the same SDPA call on fp32
+   copies of q, k and v with TF32 off, forward and backward, with the
+   kernels it ran;
 12. the transformer slice through its entry points:
    `cpc_tpu_torch.train.cli.main` trains `transformer_fast` at full width
    for 10 steps with `--set model.ar.attn_impl=flash16`, then `=flash`,
@@ -135,6 +143,7 @@ one JSON object naming the device.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -150,7 +159,8 @@ from cpc_tpu_torch import CPCModel, extract_features, presets
 from cpc_tpu_torch.config import apply_overrides
 from cpc_tpu_torch.data.loader import device_prepare
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
-from cpc_tpu_torch.ops import _build, attention_cuda, gru_cuda, infonce_fused
+from cpc_tpu_torch.ops import (_build, attention_cuda, gru_cuda, infonce_cuda,
+                               infonce_fused)
 from cpc_tpu_torch.ops.attention_cuda import (
     _FlashPlain, attention_route, flash_attention_backward,
     flash_attention_backward_reference, flash_attention_dkv,
@@ -176,7 +186,8 @@ from cpc_tpu_torch.ops.infonce_cuda import (_SameStepNllPlain,
                                             same_step_nll_backward,
                                             same_step_nll_backward_reference,
                                             same_step_nll_forward,
-                                            same_step_nll_reference)
+                                            same_step_nll_reference,
+                                            same_step_route)
 from cpc_tpu_torch.ops.infonce_fused import (_HeadsNllPlain,
                                              heads_nll_backward,
                                              heads_nll_backward_reference,
@@ -906,8 +917,16 @@ LOSS_CASES = [(LOSS_SLICE, torch.bfloat16), (LOSS_SLICE, torch.float32),
               (LOSS_LONG, torch.bfloat16),
               # R = 660, N = 333 and D = 72: no multiple of any tile
               ((5, 37, 9, 4, 72, 2), torch.bfloat16)]
-# the all-steps route each wire dtype takes at these shapes (D % 8 == 0)
+# the route each wire dtype takes at these shapes (D % 8 == 0)
 ALLSTEPS_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+SAME_STEP_ROUTES = {torch.bfloat16: "mma", torch.float32: "simt"}
+# The bf16 same-step backward's dpreds and dz on their share of entries
+# whose bf16 rounding differs from plain's, held where an output has at
+# least FLIP_MIN_ENTRIES entries: the limits of the heads backward
+# (HEADS_FLIP_TOL), which computes the same products. Held once against the
+# kernel built with delta in two bf16 terms, which must fail them.
+SAME_STEP_FLIP_TOL = {"dpreds": HEADS_FLIP_TOL["dp"],
+                      "dz": HEADS_FLIP_TOL["dz"]}
 LOSS_KERNELS = {
     "same_step": (same_step_nll_forward, same_step_nll_reference,
                   same_step_nll_backward, same_step_nll_backward_reference),
@@ -958,6 +977,11 @@ def phase8_kernels(card: str) -> dict:
                           f"{plan.groups}", flush=True)
                     check(plan.route == ALLSTEPS_ROUTES[dtype],
                           f"{what}: route {plan.route}")
+                else:
+                    route = same_step_route(T, B, C, K, D, dtype)
+                    print(f"{what}: route {route}", flush=True)
+                    check(route == SAME_STEP_ROUTES[dtype],
+                          f"{what}: route {route}")
                 nll, cor, lse = fwd(preds_v, z, shift)
                 r_nll, r_cor, r_lse = fwd_ref(preds_v, z, shift)
                 torch.cuda.synchronize()
@@ -990,26 +1014,34 @@ def phase8_kernels(card: str) -> dict:
                                                   torch.float32)
                     tol = DEEP_SUM_TOL if deep else GRAD_TOL[dtype]
                     errs[name] = max(errs[name], abs_err)
+                    flips = ""
+                    if kind == "same_step" and dtype == torch.bfloat16:
+                        flips = same_step_flips(out, a, b, check_it=True)
                     print(f"{name} vs plain {what} {out}: max abs err "
                           f"{abs_err:.3e}, relative to max |plain| "
-                          f"{err:.3e} (tol {tol:.0e}); two runs "
+                          f"{err:.3e} (tol {tol:.0e}){flips}; two runs "
                           f"bit-identical", flush=True)
                     check(err <= tol, f"{what} {out} error {err} > {tol}")
                 if kind == "same_step":
                     check(got[1][:, 0].abs().max().item() == 0.0,
                           f"{what}: dz[:, 0] is not zero")
+                if kind == "same_step" and (B, T, C, K, D, shift) == \
+                        LOSS_SLICE and dtype == torch.bfloat16:
+                    worse_flips_fail(gs[kind], r_lse, preds_v, z, shift,
+                                     want)
 
     out = {}
     for shape in (LOSS_SLICE, LOSS_LONG):
-        times = loss_times_ms(shape, tuple(LOSS_KERNELS) if shape ==
-                              LOSS_SLICE else ("allsteps",))
+        times = loss_times_ms(shape, tuple(LOSS_KERNELS))
         if shape == LOSS_SLICE:
             out = times
         for name, m in times.items():
+            simt = f" [SIMT kernels of the same call {m['simt_ms']:.4f} " \
+                f"ms]" if "simt_ms" in m else ""
             print(f"time {name} at {shape[:5]}, bf16, on {card}: kernel "
-                  f"{m['ms']:.4f} ms = {m['tflops']:.1f} TFLOP/s, plain "
-                  f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-                  f"by {m['bound_by']}", flush=True)
+                  f"{m['ms']:.4f} ms = {m['tflops']:.1f} TFLOP/s{simt}, "
+                  f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} "
+                  f"ms by {m['bound_by']}", flush=True)
         if "product_ms" in times.get("allsteps_nll_forward", {}):
             m = times["allsteps_nll_forward"]
             print(f"time of the all-steps score product alone on cuBLAS "
@@ -1022,12 +1054,66 @@ def phase8_kernels(card: str) -> dict:
     return out
 
 
+def same_step_flips(out: str, got, want, check_it: bool) -> str:
+    """The share of `got`'s entries whose bf16 rounding differs from
+    plain's, held to SAME_STEP_FLIP_TOL (if `check_it`) where `got` has
+    at least FLIP_MIN_ENTRIES entries; returns the reading for the log."""
+    flips = bf16_flips(got, want)
+    tol = SAME_STEP_FLIP_TOL[out]
+    if got.numel() < FLIP_MIN_ENTRIES:
+        return f", bf16 flips {flips:.3e} (not held: {got.numel()} entries)"
+    if check_it:
+        check(flips <= tol, f"same-step {out} bf16 flips {flips} > {tol}")
+    return f", bf16 flips {flips:.3e} (tol {tol:.0e})"
+
+
+def two_term_library() -> ctypes.CDLL:
+    """infonce_same_step.cu built again with delta in two bf16 terms
+    (CPC_DELTA_TERMS=2): a deliberately worse same-step backward, with the
+    signatures of the kernels' library."""
+    lib = _build.load_library()
+    out = _build.BUILD_DIR / "same_step_two_terms.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DCPC_DELTA_TERMS=2",
+                    "-shared", "-o", str(out),
+                    str(_build.CSRC / "infonce_same_step.cu")],
+                   check=True, capture_output=True, text=True, timeout=600)
+    worse = ctypes.CDLL(str(out))
+    worse.same_step_nll_bwd.argtypes = lib.same_step_nll_bwd.argtypes
+    worse.same_step_nll_bwd.restype = lib.same_step_nll_bwd.restype
+    worse.cpc_error_string = lib.cpc_error_string
+    return worse
+
+
+def worse_flips_fail(g, lse, preds_v, z, shift, want) -> None:
+    """The same-step flip check against the two-term kernel: at least one
+    of dpreds and dz must fail it, else the limits could not fail (C10)."""
+    worse = two_term_library()
+    with forced("load_library", lambda: worse, module=infonce_cuda):
+        got = same_step_nll_backward(g, lse, preds_v, z, shift)
+    torch.cuda.synchronize()
+    failed = []
+    for out, a, b in zip(("dpreds", "dz"), got, want):
+        reading = same_step_flips(out, a, b, check_it=False)
+        print(f"same_step_nll_backward with delta in 2 bf16 terms (a "
+              f"deliberately worse kernel) {out}: max abs err "
+              f"{(a.float() - b.float()).abs().max().item():.3e}{reading}",
+              flush=True)
+        if bf16_flips(a, b) > SAME_STEP_FLIP_TOL[out]:
+            failed.append(out)
+    check(bool(failed), "the two-term same-step kernel holds the flip "
+          "limits: they cannot tell it from the built one")
+    print(f"the two-term kernel fails the flip limits on {failed}, as it "
+          f"must", flush=True)
+
+
 def loss_times_ms(shape, kinds) -> dict:
     """Kernel and plain times of the `kinds` of LOSS_KERNELS at `shape`
     (B, T, C, K, D, shift) in bf16, with the bound and the achieved TFLOP/s
     of the products the function needs (forward: the scores; backward: the
-    scores again and the two contractions); for the all-steps forward also
-    the score product alone on cuBLAS. CUDA events, medians."""
+    scores again and the two contractions); for the same-step kernels also
+    their SIMT kernels on the same inputs (the route forced), both from the
+    replay of a CUDA graph of 10 calls; for the all-steps forward the score
+    product alone on cuBLAS. CUDA events, medians."""
     B, T, C, K, D, shift = shape
     with torch.inference_mode():
         preds_v, z, gs = loss_inputs(B, T, C, K, D, torch.bfloat16, seed=40)
@@ -1036,22 +1122,30 @@ def loss_times_ms(shape, kinds) -> dict:
         out = {}
         for kind in kinds:
             fwd, fwd_ref, bwd, bwd_ref = LOSS_KERNELS[kind]
-            reps = 20 if kind == "same_step" else 5
+            same_step = kind == "same_step"
+            reps = 20 if same_step else 5
+            timing = dict(reps=10, inner=10, graph=True) if same_step \
+                else dict(reps=reps)
             fwd_outs = fwd_ref(preds_v, z, shift)
             lse, g = fwd_outs[2], gs[kind]
-            ms = cuda_ms(lambda: fwd(preds_v, z, shift), reps=reps)
-            out[f"{kind}_nll_forward"] = {
-                "ms": ms, "tflops": flops[kind] / ms / 1e9,
-                "plain_ms": cuda_ms(lambda: fwd_ref(preds_v, z, shift),
-                                    reps=reps),
-                **bound([preds_v, z, *fwd_outs], flops[kind])}
             bwd_outs = bwd(g, lse, preds_v, z, shift)
-            ms = cuda_ms(lambda: bwd(g, lse, preds_v, z, shift), reps=reps)
-            out[f"{kind}_nll_backward"] = {
-                "ms": ms, "tflops": 3 * flops[kind] / ms / 1e9,
-                "plain_ms": cuda_ms(lambda: bwd_ref(g, lse, preds_v, z,
-                                                    shift), reps=reps),
-                **bound([g, lse, preds_v, z, *bwd_outs], 3 * flops[kind])}
+            halves = {
+                f"{kind}_nll_forward": (
+                    lambda: fwd(preds_v, z, shift),
+                    lambda: fwd_ref(preds_v, z, shift), flops[kind],
+                    [preds_v, z, *fwd_outs]),
+                f"{kind}_nll_backward": (
+                    lambda: bwd(g, lse, preds_v, z, shift),
+                    lambda: bwd_ref(g, lse, preds_v, z, shift),
+                    3 * flops[kind], [g, lse, preds_v, z, *bwd_outs])}
+            for name, (kernel, plain, work, tensors) in halves.items():
+                ms = cuda_ms(kernel, **timing)
+                out[name] = {"ms": ms, "tflops": work / ms / 1e9,
+                             "plain_ms": cuda_ms(plain, reps=reps),
+                             **bound(tensors, work)}
+                if same_step:
+                    with forced("_MMA_DTYPES", (), module=infonce_cuda):
+                        out[name]["simt_ms"] = cuda_ms(kernel, **timing)
             if kind == "allsteps":
                 rows = preds_v.permute(1, 2, 0, 3).reshape(-1, D)
                 cols = z.reshape(-1, D)
@@ -1263,6 +1357,7 @@ def phase11_kernels(card: str) -> dict:
                               **on_card)
         lib_bwd = cuda_ms(library_step, **on_card) - lib_fwd
         check(lib_bwd > 0, f"library backward time {lib_bwd}")
+        fp32_sdpa_yardstick(card, shape, q, k, v, do, fwd_ms, dq_ms + dkv_ms)
         for name, m in out.items():
             m["library_ms"] = lib_fwd if name == names[0] else lib_bwd
             m["max_abs_err"] = errs[name]
@@ -1275,6 +1370,47 @@ def phase11_kernels(card: str) -> dict:
                   f"scaled_dot_product_attention {half} "
                   f"{m['library_ms']:.4f} ms (yardstick only)", flush=True)
     return out
+
+
+def fp32_sdpa_yardstick(card, shape, q, k, v, do, fwd_ms, pair_ms) -> None:
+    """The same function as the `flash` route (fp32 P on bf16 q, k, v):
+    `scaled_dot_product_attention(is_causal=True)` on fp32 copies of q, k
+    and v with both TF32 switches off, forward and backward (timed as
+    forward + backward less the forward, over the same CUDA-graph replay),
+    printed beside the `flash` route's forward and dQ + dK/dV pair on the
+    same values, with the kernels that SDPA ran (its backend). A yardstick
+    only."""
+    from torch.profiler import ProfilerActivity, profile
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fq, fk, fv = (a.float().transpose(1, 2).detach().requires_grad_()
+                  for a in (q, k, v))
+    fg = do.float().transpose(1, 2)
+
+    def fp32_step():
+        lo = sdpa(fq, fk, fv, is_causal=True)
+        torch.autograd.grad(lo, (fq, fk, fv), fg)
+
+    on_card = dict(reps=10, inner=20, graph=True)
+    with torch.no_grad():
+        f32_fwd = cuda_ms(lambda: sdpa(fq, fk, fv, is_causal=True),
+                          **on_card)
+    f32_bwd = cuda_ms(fp32_step, **on_card) - f32_fwd
+    check(f32_bwd > 0, f"fp32 SDPA backward time {f32_bwd}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):  # the trace may miss the first call's first kernel
+            fp32_step()
+        torch.cuda.synchronize()
+    ran = sorted({ev.key.split("(")[0] for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA})
+    print(f"time at {shape}, the `flash` function (fp32 P) on {card}: "
+          f"scaled_dot_product_attention on fp32 copies of q, k, v, TF32 "
+          f"off, forward {f32_fwd:.4f} ms, backward (dq, dk and dv) "
+          f"{f32_bwd:.4f} ms, against the `flash` route's forward "
+          f"{fwd_ms:.4f} ms and "
+          f"dQ + dK/dV pair {pair_ms:.4f} ms on the same values; SDPA ran "
+          f"{'; '.join(name[:80] for name in ran)}", flush=True)
 
 
 # --------------------------------------------------------------- phase 12

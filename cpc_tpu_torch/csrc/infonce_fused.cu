@@ -90,7 +90,7 @@
 #include <cstddef>
 
 #include "common.cuh"
-#include "mma.cuh"
+#include "infonce_mma.cuh"
 
 namespace {
 
@@ -316,478 +316,71 @@ __global__ void __launch_bounds__(kTileThreads)
 }
 
 // ---------------------------------------------------------------------
-// The bf16 wire on the tensor cores (source note above).
+// The bf16 wire on the tensor cores (source note above): the bodies are
+// cpc::nce::fwd_mma and bwd_mma (infonce_mma.cuh) over this addressing.
 
-using bf16_t = __nv_bfloat16;
+using cpc::nce::bf16_t;
+using cpc::nce::kCols;
+using cpc::nce::kHalves;
+using cpc::nce::kMmaThreads;
+using cpc::nce::kRows;
+using cpc::nce::kSlab;
 
-constexpr int kWarps = 8;
-constexpr int kMmaThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;  // rows of a block (a row group)
-constexpr int kCols = 64;           // a column tile of z[tau]
-constexpr int kSlab = 64;           // depth of a slab, along D
-constexpr int kPad = kSlab + 8;     // a slab row: 64 bf16 and 8 of padding,
-                                    // which keeps ldmatrix off bank conflicts
-constexpr int kStages = 4;          // slabs in the ring, the one in use
-                                    // included
-// The backward's 64-wide chunks of D a block: 4 (256 columns, dz's
-// accumulator 64 registers a thread; 2 chunks measured 32-47 % slower), and
-// the bf16 terms delta enters its products as: 3 (source note above)
-constexpr int kHalves = 4;
-constexpr int kTerms = 3;
+// p (T, B, K*D), rows clamped to 0..T-1 as the Pallas index map clamps;
+// z (T, C, D); dz (T, C, D) fp32; dp (K, T, B, D).
+struct HeadsAddr : cpc::nce::MmaGeo {
+  static constexpr int kFirstTau = 0;
+  static constexpr bool kNullRows = false;  // clamped, never null
+  const bf16_t* p;
+  const bf16_t* z;
+  size_t z_cs;
+  float* dz;
+  bf16_t* dp;
 
-struct Geo {
-  int T, B, C, K, D, Tp, shift;
-};
-
-// What a block knows of its (up to) kRows rows: the row's vector in p (or
-// nullptr outside the problem), its dp offset, lse, g_nll * valid and
-// positive column.
-struct Rows {
-  const bf16_t* ptr[kRows];
-  size_t out[kRows];
-  float lse[kRows], coef[kRows];
-  int label[kRows];
-};
-
-struct Slabs {
-  alignas(16) bf16_t p[kRows][kPad];
-  alignas(16) bf16_t z[kCols][kPad];
-};
-
-struct FwdSmem {
-  Slabs ring[kStages];
-  Rows rows;
-};
-
-struct BwdSmem {
-  Slabs ring[kStages];
-  alignas(16) bf16_t delta[kTerms][kRows][kPad];  // the row group's terms
-  Rows rows[kStages];  // of the units the ring reaches into
-};
-
-extern __shared__ __align__(16) unsigned char heads_smem[];
-
-__device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
-
-// Which part of a 64-wide half of dz[tau]'s tile a warp forms: 16 columns
-// of the tile from cw, and `pairs` pairs of 8-wide n-tiles of D from dw.
-// With nq <= 2 16-column groups of candidates (C <= 32), the half's 64
-// columns of D go to 4 warps each, so that 4 or 8 warps work, not 2 or 4.
-struct DzPart {
-  int cw, dw, pairs;
-};
-
-__device__ __forceinline__ DzPart dz_part(int nq, int warp) {
-  const int dsplit = nq <= 2 ? 4 : 2;  // groups of the half's columns of D
-  const int cgroups = kWarps / dsplit;
-  return {(warp % cgroups) * 16, (warp / cgroups) * (kSlab / dsplit),
-          4 / dsplit};
-}
-
-// Threads 0..kRows-1 fill `rw` for flat rows [r0, r0 + kRows) of target
-// step tau; lse and gn are nullptr in the forward. No synchronisation.
-__device__ __forceinline__ void load_rows(Rows& rw, int tau, int r0,
-                                          const bf16_t* p, const float* lse,
-                                          const float* gn, const Geo& g) {
-  const int m = threadIdx.x;
-  if (m >= kRows) return;
-  const int r = r0 + m;
-  if (r < g.K * g.B) {
-    const int k = r / g.B, b = r % g.B;
+  __device__ __forceinline__ cpc::nce::RowRef row(int tau, int k,
+                                                  int b) const {
     const int t = tau - 1 - k;
-    const int tc = t < 0 ? 0 : (t > g.T - 1 ? g.T - 1 : t);
-    rw.ptr[m] = p + (static_cast<size_t>(tc) * g.B + b) * g.K * g.D +
-                static_cast<size_t>(k) * g.D;
-    rw.out[m] = ((static_cast<size_t>(k) * g.T + tau) * g.B + b) * g.D;
-    rw.label[m] = g.shift + b;
-    const size_t o = static_cast<size_t>(tau) * g.K * g.B + r;
-    rw.lse[m] = lse ? lse[o] : 0.f;
-    rw.coef[m] = gn ? gn[o] * (t >= 0 && t < g.Tp ? 1.f : 0.f) : 0.f;
-  } else {
-    rw.ptr[m] = nullptr;
-    rw.out[m] = 0;
-    rw.label[m] = -1;
-    rw.lse[m] = rw.coef[m] = 0.f;
+    const int tc = t < 0 ? 0 : (t > T - 1 ? T - 1 : t);
+    return {p + (static_cast<size_t>(tc) * B + b) * K * D +
+                static_cast<size_t>(k) * D,
+            ((static_cast<size_t>(k) * T + tau) * B + b) * D,
+            t >= 0 && t < Tp};
   }
-}
-
-// Starts the copies of elements [k0, k0 + 64) of the first n_rows16 rows
-// and of the first n_cols16 columns of the tile zc (n_cols of them in the
-// problem) into `s`, zero-filling beyond D and outside the problem. `safe`
-// is any valid 16-byte aligned address, named where nothing is read.
-__device__ __forceinline__ void stage(Slabs& s, const Rows& rw, int n_rows16,
-                                      const bf16_t* zc, int n_cols,
-                                      int n_cols16, int k0, int D,
-                                      const bf16_t* safe) {
-  for (int e = threadIdx.x; e < n_rows16 * 8; e += kMmaThreads) {
-    const int row = e >> 3, c = (e & 7) * 8;
-    const bf16_t* q = rw.ptr[row];
-    const bool in = q != nullptr && k0 + c < D;
-    cpc::cp_async16(&s.p[row][c], in ? q + k0 + c : safe, in ? 16 : 0);
+  __device__ __forceinline__ const bf16_t* column(int tau, int c0) const {
+    return z + static_cast<size_t>(tau) * C * D + static_cast<size_t>(c0) * D;
   }
-  for (int e = threadIdx.x; e < n_cols16 * 8; e += kMmaThreads) {
-    const int col = e >> 3, c = (e & 7) * 8;
-    const bool in = col < n_cols && k0 + c < D;
-    cpc::cp_async16(&s.z[col][c],
-                    in ? zc + static_cast<size_t>(col) * D + k0 + c : safe,
-                    in ? 16 : 0);
+  __device__ __forceinline__ float2* dz_at(int tau, int c, int d) const {
+    return reinterpret_cast<float2*>(
+        dz + (static_cast<size_t>(tau) * C + c) * D + d);
   }
-}
-
-// Before the work on job q: starts the copies of job q + kStages - 1
-// (`fetch` stages nothing past the last job, and always closes a group, so
-// the count of groups in flight stays the same), waits for job q's, and
-// makes them visible to the block.
-template <class Fetch>
-__device__ __forceinline__ void next_job(int q, const Fetch& fetch) {
-  fetch(q + kStages - 1);
-  cpc::cp_async_wait<kStages - 1>();
-  __syncthreads();
-}
-
-// s (this warp's 16 rows x 64 columns) += the slab's product, summed from
-// zero, over the first nq 16-column groups.
-__device__ __forceinline__ void score_mma(const Slabs& sl, int nq,
-                                          float (&s)[8][4]) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float t[8][4] = {};
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    unsigned a[4];
-    cpc::ldmatrix_x4(a,
-                     &sl.p[warp * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {  // two 8-column tiles a load
-      if (np >= nq) break;            // block-uniform
-      unsigned b[4];
-      cpc::ldmatrix_x4(b, &sl.z[np * 16 + lane % 8 + (lane / 16) * 8]
-                               [kk * 16 + ((lane / 8) % 2) * 8]);
-      cpc::mma_bf16(t[2 * np], a, b[0], b[1]);
-      cpc::mma_bf16(t[2 * np + 1], a, b[2], b[3]);
-    }
+  __device__ __forceinline__ void store_dz(int tau, int c, int d, float x,
+                                           float y) const {
+    *dz_at(tau, c, d) = make_float2(x, y);
   }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] += t[nt][e];
-}
+  __device__ __forceinline__ void add_dz(int tau, int c, int d, float x,
+                                         float y, bool first, bool) const {
+    float2* a = dz_at(tau, c, d);
+    const float2 was = first ? make_float2(0.f, 0.f) : *a;
+    *a = make_float2(was.x + x, was.y + y);
+  }
+  __device__ __forceinline__ void finish(int, int, int) const {}
+};
 
 // Grid (T * n_rb); block kMmaThreads; dynamic shared memory FwdSmem.
 __global__ void __launch_bounds__(kMmaThreads, 2)
-    heads_fwd_mma_kernel(const bf16_t* __restrict__ p,
-                         const bf16_t* __restrict__ z,
+    heads_fwd_mma_kernel(const __grid_constant__ HeadsAddr a,
                          float* __restrict__ nll, float* __restrict__ cor,
-                         float* __restrict__ lse, Geo g, int n_rb) {
-  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(heads_smem);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int tau = blockIdx.x / n_rb;
-  const int r0 = (blockIdx.x % n_rb) * kRows;
-  const int KB = g.K * g.B;
-  const int n_rows = KB - r0 < kRows ? KB - r0 : kRows;
-  const int KC = (g.D + kSlab - 1) / kSlab;
-  const int n_ct = (g.C + kCols - 1) / kCols;
-  const int total = n_ct * KC;
-  const bf16_t* zt = z + static_cast<size_t>(tau) * g.C * g.D;
-  load_rows(sm.rows, tau, r0, p, nullptr, nullptr, g);
-  __syncthreads();
-  auto fetch = [&](int q) {
-    if (q < total) {
-      const int c0 = (q / KC) * kCols;
-      const int nc = g.C - c0 < kCols ? g.C - c0 : kCols;
-      stage(sm.ring[q % kStages], sm.rows, round16(n_rows),
-            zt + static_cast<size_t>(c0) * g.D, nc, round16(nc),
-            (q % KC) * kSlab, g.D, z);
-    }
-    cpc::cp_async_commit();
-  };
-  for (int q = 0; q < kStages - 1; ++q) fetch(q);
-  const bool active = warp * 16 < n_rows;  // warp-uniform
-  const int row[2] = {warp * 16 + lane / 4, warp * 16 + lane / 4 + 8};
-  const int label[2] = {sm.rows.label[row[0]], sm.rows.label[row[1]]};
-  cpc::RowStats<2, 4> st;
-  st.init();
-  int q = 0;
-  for (int ct = 0; ct < n_ct; ++ct) {
-    const int c0 = ct * kCols;
-    const int nc = g.C - c0 < kCols ? g.C - c0 : kCols;
-    const int nq = round16(nc) / 16;
-    float s[8][4] = {};
-    for (int kc = 0; kc < KC; ++kc, ++q) {
-      next_job(q, fetch);
-      if (active) score_mma(sm.ring[q % kStages], nq, s);
-      __syncthreads();
-    }
-    if (!active) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // the thread's two rows
-      float v[16];
-      int col[16];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          v[nt * 2 + e] = s[nt][h * 2 + e];
-          col[nt * 2 + e] = c0 + nt * 8 + (lane % 4) * 2 + e;
-        }
-      st.update_row(h, v, col, g.C, label[h]);
-    }
-  }
-  st.finish();
-  if (active && lane % 4 == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (row[h] >= n_rows) continue;
-      const size_t o = static_cast<size_t>(tau) * KB + r0 + row[h];
-      const float row_lse = st.lse(h);
-      nll[o] = row_lse - st.s_lab[h];
-      cor[o] = st.best_c[h] == label[h] ? 1.f : 0.f;
-      lse[o] = row_lse;
-    }
-  }
+                         float* __restrict__ lse, int n_rb) {
+  cpc::nce::fwd_mma(a, nll, cor, lse, n_rb);
 }
 
 // Grid (T * n_dc); block kMmaThreads; dynamic shared memory BwdSmem.
-// kOneTile: C <= 64, dz's accumulator in registers; else C is swept in
-// 64-column tiles and dz is added in global memory by its owner thread.
-//
-// The block's work is a list of units, each a (row group, pass, column
-// tile), and a unit is a list of jobs on one slab each: KC score jobs, then
-// the product jobs (one per 64-wide half of the chunk; with more than one
-// column tile one half per pass, so that dp's sum over the tiles stays in
-// registers and dp is rounded once).
 template <bool kOneTile>
 __global__ void __launch_bounds__(kMmaThreads, 1)
-    heads_bwd_mma_kernel(const float* __restrict__ gn,
-                         const float* __restrict__ lse,
-                         const bf16_t* __restrict__ p,
-                         const bf16_t* __restrict__ z, float* __restrict__ dz,
-                         bf16_t* __restrict__ dp, Geo g, int n_dc) {
-  BwdSmem& sm = *reinterpret_cast<BwdSmem*>(heads_smem);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int qd = lane % 4, gr = lane / 4;
-  const int tau = blockIdx.x / n_dc;
-  const int d0 = (blockIdx.x % n_dc) * kSlab * kHalves;
-  const int left = (g.D - d0 + kSlab - 1) / kSlab;
-  const int nh = left < kHalves ? left : kHalves;
-  const int KB = g.K * g.B;
-  const int n_rg = (KB + kRows - 1) / kRows;
-  const int n_ct = kOneTile ? 1 : (g.C + kCols - 1) / kCols;
-  const int KC = (g.D + kSlab - 1) / kSlab;
-  const int n_pass = kOneTile ? 1 : nh;
-  const int n_prod = kOneTile ? nh : 1;
-  const int jobs = KC + n_prod;
-  const int units = n_rg * n_pass * n_ct;
-  const int total = units * jobs;
-  const bf16_t* zt = z + static_cast<size_t>(tau) * g.C * g.D;
-  auto unit_rg = [&](int u) { return u / (n_pass * n_ct); };
-  auto fetch = [&](int q) {
-    if (q < total) {
-      const int u = q / jobs, j = q % jobs;
-      const int rg = unit_rg(u), ct = u % n_ct, pass = (u / n_ct) % n_pass;
-      const int n_rows = KB - rg * kRows < kRows ? KB - rg * kRows : kRows;
-      const int c0 = ct * kCols;
-      const int nc = g.C - c0 < kCols ? g.C - c0 : kCols;
-      const int k0 =
-          j < KC ? j * kSlab : d0 + (kOneTile ? j - KC : pass) * kSlab;
-      stage(sm.ring[q % kStages], sm.rows[u % kStages], round16(n_rows),
-            zt + static_cast<size_t>(c0) * g.D, nc, round16(nc), k0, g.D, z);
-    }
-    cpc::cp_async_commit();
-  };
-  for (int u = 0; u < kStages - 1 && u < units; ++u) {
-    load_rows(sm.rows[u], tau, unit_rg(u) * kRows, p, lse, gn, g);
-  }
-  __syncthreads();
-  for (int q = 0; q < kStages - 1; ++q) fetch(q);
-
-  float dzacc[kHalves][4][4] = {};
-  float dpacc[8][4] = {};
-  int q = 0;
-  for (int u = 0; u < units; ++u) {
-    const int ahead = u + kStages - 1;  // the farthest unit the ring reaches
-    if (ahead < units) {
-      load_rows(sm.rows[ahead % kStages], tau, unit_rg(ahead) * kRows, p, lse,
-                gn, g);
-      __syncthreads();
-    }
-    const Rows& rw = sm.rows[u % kStages];
-    const int rg = unit_rg(u), ct = u % n_ct, pass = (u / n_ct) % n_pass;
-    const int n_rows = KB - rg * kRows < kRows ? KB - rg * kRows : kRows;
-    const int nr16 = round16(n_rows) / 16;
-    const int c0 = ct * kCols;
-    const int nc = g.C - c0 < kCols ? g.C - c0 : kCols;
-    const int nq = round16(nc) / 16;
-    const bool active = warp < nr16;  // warp-uniform
-    float s[8][4] = {};
-    for (int kc = 0; kc < KC; ++kc, ++q) {
-      next_job(q, fetch);
-      if (active) score_mma(sm.ring[q % kStages], nq, s);
-      __syncthreads();
-    }
-    // delta as kTerms bf16 terms, each the rounding of what the terms
-    // before it left: A fragments, and parked for dz's transposed read
-    unsigned dt[kTerms][4][4] = {};
-    if (active) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt >= 2 * nq) break;  // block-uniform
-        float term[kTerms][4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = warp * 16 + gr + (e / 2) * 8;
-          const int c = c0 + nt * 8 + qd * 2 + (e & 1);
-          float d = c < g.C ? (expf(s[nt][e] - rw.lse[m]) -
-                               (c == rw.label[m] ? 1.f : 0.f)) *
-                                  rw.coef[m]
-                            : 0.f;
-#pragma unroll
-          for (int i = 0; i < kTerms; ++i) {
-            term[i][e] = cpc::round_to<bf16_t>(d);
-            d -= term[i][e];  // exact
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kTerms; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const unsigned v =
-                cpc::pack_bf16(term[i][2 * h], term[i][2 * h + 1]);
-            dt[i][nt / 2][(nt % 2) * 2 + h] = v;
-            const int m = warp * 16 + gr + h * 8, c = nt * 8 + qd * 2;
-            *reinterpret_cast<unsigned*>(&sm.delta[i][m][c]) = v;
-          }
-      }
-    }
-#pragma unroll
-    for (int hj = 0; hj < kHalves; ++hj) {
-      if (hj >= n_prod) break;  // block-uniform
-      next_job(q, fetch);
-      const Slabs& sl = sm.ring[q % kStages];
-      const int dh0 = d0 + (kOneTile ? hj : pass) * kSlab;
-      if (active) {  // dp = delta z[tau] over the tile's columns
-        float t[8][4] = {};
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          if (ks >= nq) break;  // block-uniform
-#pragma unroll
-          for (int dpr = 0; dpr < 4; ++dpr) {
-            unsigned b[4];
-            cpc::ldmatrix_x4_trans(
-                b, &sl.z[ks * 16 + lane % 16][dpr * 16 + (lane / 16) * 8]);
-#pragma unroll
-            for (int i = 0; i < kTerms; ++i) {
-              cpc::mma_bf16(t[2 * dpr], dt[i][ks], b[0], b[1]);
-              cpc::mma_bf16(t[2 * dpr + 1], dt[i][ks], b[2], b[3]);
-            }
-          }
-        }
-        if (!kOneTile) {
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              dpacc[nt][e] += t[nt][e];
-              t[nt][e] = dpacc[nt][e];
-            }
-        }
-        if (kOneTile || ct == n_ct - 1) {  // dp of these rows is whole
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int m = warp * 16 + gr + h * 8;
-            if (m >= n_rows) continue;
-            bf16_t* dst = dp + rw.out[m];
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt) {
-              const int d = dh0 + nt * 8 + qd * 2;
-              if (d < g.D) {  // D is even: the pair is inside, 4-byte aligned
-                *reinterpret_cast<__nv_bfloat162*>(dst + d) =
-                    __floats2bfloat162_rn(t[nt][2 * h], t[nt][2 * h + 1]);
-              }
-            }
-          }
-          if (!kOneTile) {
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) dpacc[nt][e] = 0.f;
-          }
-        }
-      }
-      // dz[tau][tile, half] += delta^T p; this thread's part: columns
-      // cw + gr (+8) of the tile, 2 * pairs n-tiles of 8 from dw
-      const DzPart pt = dz_part(nq, warp);
-      if (pt.cw < nq * 16) {  // warp-uniform
-        float t[4][4] = {};
-#pragma unroll
-        for (int ks = 0; ks < kRows / 16; ++ks) {
-          if (ks >= nr16) break;  // block-uniform
-          unsigned a[kTerms][4];
-          const int ar = ks * 16 + (lane / 16) * 8 + lane % 8;
-          const int ac = pt.cw + ((lane / 8) % 2) * 8;
-#pragma unroll
-          for (int i = 0; i < kTerms; ++i) {
-            cpc::ldmatrix_x4_trans(a[i], &sm.delta[i][ar][ac]);
-          }
-#pragma unroll
-          for (int dpr = 0; dpr < 2; ++dpr) {
-            if (dpr >= pt.pairs) break;  // block-uniform
-            unsigned b[4];
-            const int bc = pt.dw + dpr * 16 + (lane / 16) * 8;
-            cpc::ldmatrix_x4_trans(b, &sl.p[ks * 16 + lane % 16][bc]);
-#pragma unroll
-            for (int i = 0; i < kTerms; ++i) {
-              cpc::mma_bf16(t[2 * dpr], a[i], b[0], b[1]);
-              cpc::mma_bf16(t[2 * dpr + 1], a[i], b[2], b[3]);
-            }
-          }
-        }
-        if (kOneTile) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) dzacc[hj][j][e] += t[j][e];
-        } else {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int c = c0 + pt.cw + gr + h * 8;
-            if (c >= g.C) continue;
-            float* row = dz + (static_cast<size_t>(tau) * g.C + c) * g.D;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int d = dh0 + pt.dw + j * 8 + qd * 2;
-              if (j >= 2 * pt.pairs || d >= g.D) continue;
-              float2* a = reinterpret_cast<float2*>(row + d);
-              const float2 was = rg == 0 ? make_float2(0.f, 0.f) : *a;
-              *a = make_float2(was.x + t[j][2 * h], was.y + t[j][2 * h + 1]);
-            }
-          }
-        }
-      }
-      __syncthreads();
-      ++q;
-    }
-  }
-  if (kOneTile) {
-    const DzPart pt = dz_part(round16(g.C) / 16, warp);
-#pragma unroll
-    for (int hj = 0; hj < kHalves; ++hj) {
-      if (hj >= nh) break;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = pt.cw + gr + h * 8;
-        if (c >= g.C) continue;
-        float* row = dz + (static_cast<size_t>(tau) * g.C + c) * g.D;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int d = d0 + hj * kSlab + pt.dw + j * 8 + qd * 2;
-          if (j < 2 * pt.pairs && d < g.D) {
-            *reinterpret_cast<float2*>(row + d) =
-                make_float2(dzacc[hj][j][2 * h], dzacc[hj][j][2 * h + 1]);
-          }
-        }
-      }
-    }
-  }
+    heads_bwd_mma_kernel(const __grid_constant__ HeadsAddr a,
+                         const float* __restrict__ gn,
+                         const float* __restrict__ lse, int n_dc) {
+  cpc::nce::bwd_mma<kOneTile>(a, gn, lse, n_dc);
 }
 
 bool grid_ok(long long x, long long y, long long z) {
@@ -797,59 +390,43 @@ bool grid_ok(long long x, long long y, long long z) {
 
 int tiles(int n) { return (n + kTile - 1) / kTile; }
 
-constexpr int kRouteSimt = 0, kRouteMma = 1;
+using cpc::nce::kRouteMma;
+using cpc::nce::kRouteSimt;
+using cpc::nce::mma_ok;
 
-// Whether cp.async's 16 bytes fit the operands: D a multiple of 8 elements
-// (so is every row's offset) and both pointers 16-byte aligned.
-bool mma_ok(int D, const void* p, const void* z) {
-  return D % 8 == 0 && reinterpret_cast<size_t>(p) % 16 == 0 &&
-         reinterpret_cast<size_t>(z) % 16 == 0;
-}
-
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-int launch_fwd_mma(const void* p, const void* z, float* nll, float* cor,
-                   float* lse, const Geo& g, cudaStream_t s) {
-  const int n_rb = (g.K * g.B + kRows - 1) / kRows;
-  if (!grid_ok(static_cast<long long>(g.T) * n_rb, 1, 1)) {
+int launch_fwd_mma(const HeadsAddr& a, float* nll, float* cor, float* lse,
+                   cudaStream_t s) {
+  const int n_rb = (a.K * a.B + kRows - 1) / kRows;
+  if (!grid_ok(static_cast<long long>(a.T) * n_rb, 1, 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = allow_smem(heads_fwd_mma_kernel, sizeof(FwdSmem));
+  const size_t smem = sizeof(cpc::nce::FwdSmem);
+  const cudaError_t err = cpc::nce::allow_smem(heads_fwd_mma_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  heads_fwd_mma_kernel<<<g.T * n_rb, kMmaThreads, sizeof(FwdSmem), s>>>(
-      static_cast<const bf16_t*>(p), static_cast<const bf16_t*>(z), nll, cor,
-      lse, g, n_rb);
+  heads_fwd_mma_kernel<<<a.T * n_rb, kMmaThreads, smem, s>>>(a, nll, cor,
+                                                             lse, n_rb);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kOneTile>
-int launch_bwd_mma(const float* gn, const float* lse, const void* p,
-                   const void* z, float* dz, void* dp, const Geo& g,
+int launch_bwd_mma(const HeadsAddr& a, const float* gn, const float* lse,
                    cudaStream_t s) {
-  const int n_dc = (g.D + kSlab * kHalves - 1) / (kSlab * kHalves);
-  if (!grid_ok(static_cast<long long>(g.T) * n_dc, 1, 1)) {
+  const int n_dc = (a.D + kSlab * kHalves - 1) / (kSlab * kHalves);
+  if (!grid_ok(static_cast<long long>(a.T) * n_dc, 1, 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = heads_bwd_mma_kernel<kOneTile>;
-  const size_t smem = sizeof(BwdSmem);
-  const cudaError_t err = allow_smem(kernel, smem);
+  const size_t smem = sizeof(cpc::nce::BwdSmem);
+  const cudaError_t err = cpc::nce::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<g.T * n_dc, kMmaThreads, smem, s>>>(
-      gn, lse, static_cast<const bf16_t*>(p), static_cast<const bf16_t*>(z),
-      dz, static_cast<bf16_t*>(dp), g, n_dc);
+  kernel<<<a.T * n_dc, kMmaThreads, smem, s>>>(a, gn, lse, n_dc);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bwd_mma(const float* gn, const float* lse, const void* p,
-                   const void* z, float* dz, void* dp, const Geo& g,
+int launch_bwd_mma(const HeadsAddr& a, const float* gn, const float* lse,
                    cudaStream_t s) {
-  return g.C <= kCols ? launch_bwd_mma<true>(gn, lse, p, z, dz, dp, g, s)
-                      : launch_bwd_mma<false>(gn, lse, p, z, dz, dp, g, s);
+  return a.C <= kCols ? launch_bwd_mma<true>(a, gn, lse, s)
+                      : launch_bwd_mma<false>(a, gn, lse, s);
 }
 
 }  // namespace
@@ -877,8 +454,13 @@ int heads_nll_fwd(const void* p, const void* z, void* nll, void* cor,
   float* c = static_cast<float*>(cor);
   float* l = static_cast<float*>(lse);
   if (route == kRouteMma) {
-    const Geo g{steps, batch, pool, K, D, steps - K, shift};
-    return launch_fwd_mma(p, z, n, c, l, g, s);
+    const HeadsAddr a{{steps, batch, pool, K, D, steps - K, shift},
+                      static_cast<const bf16_t*>(p),
+                      static_cast<const bf16_t*>(z),
+                      static_cast<size_t>(D),
+                      nullptr,
+                      nullptr};
+    return launch_fwd_mma(a, n, c, l, s);
   }
   const dim3 grid(steps * K, tiles(batch));
   if (bf16) {
@@ -919,8 +501,13 @@ int heads_nll_bwd(const void* g, const void* lse, const void* p,
   float* dl = static_cast<float*>(delta);
   float* dzf = static_cast<float*>(dz);
   if (route == kRouteMma) {
-    const Geo geo{steps, batch, pool, K, D, tp, shift};
-    return launch_bwd_mma(gf, lf, p, z, dzf, dp, geo, s);
+    const HeadsAddr a{{steps, batch, pool, K, D, tp, shift},
+                      static_cast<const bf16_t*>(p),
+                      static_cast<const bf16_t*>(z),
+                      static_cast<size_t>(D),
+                      dzf,
+                      static_cast<bf16_t*>(dp)};
+    return launch_bwd_mma(a, gf, lf, s);
   }
   const dim3 g1(steps * K, tiles(batch));
   const dim3 g2(steps, tiles(pool), tiles(D));

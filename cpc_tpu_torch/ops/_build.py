@@ -122,9 +122,9 @@ def load_library() -> ctypes.CDLL:
         "gru_exchange_probe": [ptr] + [i32] * 4 + [ptr],
         "heads_nll_fwd": [ptr] * 5 + [i32] * 9 + [ptr],
         "heads_nll_bwd": [ptr] * 7 + [i32] * 10 + [ptr],
-        "same_step_nll_fwd": [ptr] * 5 + [i32] * 6 + [i64] * 4 + [i32] * 2
+        "same_step_nll_fwd": [ptr] * 5 + [i32] * 6 + [i64] * 4 + [i32] * 3
         + [ptr],
-        "same_step_nll_bwd": [ptr] * 7 + [i32] * 6 + [i64] * 4 + [i32] * 2
+        "same_step_nll_bwd": [ptr] * 8 + [i32] * 6 + [i64] * 4 + [i32] * 3
         + [ptr],
         "allsteps_nll_fwd": [ptr] * 5 + [i32] * 6 + [i64] * 2 + [i32] * 3
         + [ptr],

@@ -26,8 +26,8 @@ tensor the kernels, which run or raise. The fused heads + InfoNCE kernel
 takes c and the heads' weight, not preds, and is `ops.infonce_fused`. The
 JAX package's `ring=True` is not ported (ROADMAP.md §A13).
 
-`WIRE_DTYPES`, `check_labels` and `on_device` are shared by the three kernel
-modules.
+`WIRE_DTYPES`, `check_labels`, `on_device` and `tensor_core_route` are
+shared by the three kernel modules.
 """
 
 from __future__ import annotations
@@ -55,6 +55,21 @@ def on_device(t: torch.Tensor, cpu_fn, cuda_fn, *args):
         raise ValueError(f"the InfoNCE kernels run on cpu or cuda, not "
                          f"{t.device}")
     return cuda_fn(*args)
+
+
+def tensor_core_route(shape, dtype: torch.dtype, aligned: bool,
+                      mma_dtypes) -> str:
+    """The route rule of the fused heads and the same-step kernels, for
+    shape (T, B, C, K, D): "mma" for a wire dtype in `mma_dtypes` with D a
+    multiple of 8 and `aligned` rows, else "simt". Raises on a dtype or an
+    empty shape that no kernel takes."""
+    if dtype not in WIRE_DTYPES:
+        raise TypeError(f"the operands must be one of {WIRE_DTYPES}, got "
+                        f"{dtype}")
+    if min(shape) < 1:
+        raise ValueError(f"empty shape (T, B, C, K, D) = {tuple(shape)}")
+    mma = dtype in mma_dtypes and shape[4] % 8 == 0 and aligned
+    return "mma" if mma else "simt"
 
 
 def stacked_targets(z: torch.Tensor, num_steps: int) -> torch.Tensor:

@@ -32,6 +32,19 @@ Dispatch is by the device of `preds_v`: a CPU tensor goes through
 `_SameStepNllPlain` (`same_step_nll_reference`,
 `same_step_nll_backward_reference`), a CUDA tensor through
 `_SameStepNllCuda`, whose two halves are the kernels, which run or raise.
+`same_step_route` names the kernels a CUDA tensor runs:
+
+- "mma" (bf16 with D, the base pointers and the batch, time and candidate
+  strides 16-byte aligned: the training path): tensor-core products, the
+  fused heads' kernels over a row table of preds_v. The forward is one
+  launch; the backward ONE launch with no scratch of delta, and for
+  C > 64 an fp32 (C, T, D) scratch of dz that its owner threads sum in a
+  fixed order. Its bound on an H100 is the bytes of preds_v; it runs at
+  1.4-2x that bound forward and 4-6x backward, where each 64-deep job is a
+  few tensor-core products between block barriers (PERF.md §6).
+- "simt" (fp32, the parity configuration, and unaligned bf16): SIMT fp32
+  products; the forward one launch, the backward three through an fp32
+  (T-1, K, B, C) scratch of delta. Bounded by the SIMT pipe's rate.
 """
 
 from __future__ import annotations
@@ -42,7 +55,8 @@ import torch
 
 from cpc_tpu_torch.ops._build import check_launch, load_library
 from cpc_tpu_torch.ops.infonce import (WIRE_DTYPES, check_labels,
-                                       first_argmax, on_device)
+                                       first_argmax, on_device,
+                                       tensor_core_route)
 
 
 def validity_mask(T: int, K: int, B: int, Tp: int,
@@ -157,12 +171,46 @@ def check_rows(preds_v: torch.Tensor, shape, **rows: torch.Tensor) -> None:
                              f"on {preds_v.device}")
 
 
-def _geometry(preds_v, z_pool, shift):
+# the wire dtypes the tensor-core kernels take
+_MMA_DTYPES = (torch.bfloat16,)
+_ROUTE_CODES = {"simt": 0, "mma": 1}
+# the mma backward's column tile: beyond it dz is summed in an fp32 scratch
+_MMA_COLS = 64
+
+
+def same_step_route(T: int, B: int, C: int, K: int, D: int,
+                    dtype: torch.dtype, aligned: bool = True) -> str:
+    """Names the kernels `same_step_nll_forward` and `same_step_nll_backward`
+    launch on the card for preds_v (B, T-K, K, D) and z_pool (C, T, D) of
+    `dtype`. Pure Python.
+
+    "mma": bf16 with D a multiple of 8 and every row 16-byte aligned
+    (`aligned`: both base pointers and preds_v's batch and time strides and
+    z_pool's candidate and time strides multiples of 8 elements), the
+    training path: tensor-core products, the backward one launch with no
+    scratch of delta. "simt": everything else, the fp32 wire (the parity
+    configuration) and unaligned bf16: SIMT fp32 products, the backward
+    three launches. Raises on inputs that no kernel takes."""
+    return tensor_core_route((T, B, C, K, D), dtype, aligned, _MMA_DTYPES)
+
+
+def _route(preds_v: torch.Tensor, z_pool: torch.Tensor) -> str:
+    B, Tp, K, D = preds_v.shape
+    C, T, _ = z_pool.shape
+    strides = (preds_v.stride(0), preds_v.stride(1), z_pool.stride(0),
+               z_pool.stride(1))
+    aligned = (preds_v.data_ptr() % 16 == 0 and z_pool.data_ptr() % 16 == 0
+               and all(s % 8 == 0 for s in strides))
+    return same_step_route(T, B, C, K, D, preds_v.dtype, aligned)
+
+
+def _geometry(preds_v, z_pool, shift, route):
     B, Tp, K, D = preds_v.shape
     C, T, _ = z_pool.shape
     return (T, B, C, K, D, shift, preds_v.stride(0), preds_v.stride(1),
             z_pool.stride(0), z_pool.stride(1),
-            int(preds_v.dtype == torch.bfloat16), preds_v.device.index,
+            int(preds_v.dtype == torch.bfloat16), _ROUTE_CODES[route],
+            preds_v.device.index,
             torch.cuda.current_stream(preds_v.device).cuda_stream)
 
 
@@ -175,7 +223,7 @@ def _launch_fwd(preds_v, z_pool, shift):
                         device=preds_v.device) for _ in range(3)]
     err = lib.same_step_nll_fwd(
         preds_v.data_ptr(), z_pool.data_ptr(), *(o.data_ptr() for o in outs),
-        *_geometry(preds_v, z_pool, shift))
+        *_geometry(preds_v, z_pool, shift, _route(preds_v, z_pool)))
     check_launch(lib, err, "same_step_nll_forward")
     same_step_nll_forward.launches += 1
     return tuple(outs)
@@ -188,15 +236,20 @@ def _launch_bwd(g_nll, lse, preds_v, z_pool, shift):
     check_rows(preds_v, (T - 1, K * B), g_nll=g_nll, lse=lse)
     lib = load_library()
     dev = preds_v.device
-    # the scratch is freed after the launch, which is safe: the caching
+    route = _route(preds_v, z_pool)
+    # a scratch is freed after the launch, which is safe: the caching
     # allocator reuses it only for work queued later on the same stream
-    delta = torch.empty((T - 1, K, B, C), dtype=torch.float32, device=dev)
+    delta = (torch.empty((T - 1, K, B, C), dtype=torch.float32, device=dev)
+             if route == "simt" else None)
+    dz32 = (torch.empty((C, T, D), dtype=torch.float32, device=dev)
+            if route == "mma" and C > _MMA_COLS else None)
     dz = torch.empty((C, T, D), dtype=z_pool.dtype, device=dev)
     dpreds = torch.empty((B, Tp, K, D), dtype=preds_v.dtype, device=dev)
     err = lib.same_step_nll_bwd(
         g_nll.data_ptr(), lse.data_ptr(), preds_v.data_ptr(),
-        z_pool.data_ptr(), delta.data_ptr(), dz.data_ptr(),
-        dpreds.data_ptr(), *_geometry(preds_v, z_pool, shift))
+        z_pool.data_ptr(), None if delta is None else delta.data_ptr(),
+        None if dz32 is None else dz32.data_ptr(), dz.data_ptr(),
+        dpreds.data_ptr(), *_geometry(preds_v, z_pool, shift, route))
     check_launch(lib, err, "same_step_nll_backward")
     same_step_nll_backward.launches += 1
     return dpreds, dz
@@ -205,8 +258,8 @@ def _launch_bwd(g_nll, lse, preds_v, z_pool, shift):
 def same_step_nll_forward(preds_v: torch.Tensor, z_pool: torch.Tensor,
                           shift: int):
     """(nll, correct, lse). CPU tensors run `same_step_nll_reference`; CUDA
-    tensors run the kernel, and `same_step_nll_forward.launches` counts its
-    launches."""
+    tensors run the kernel of `same_step_route`, and
+    `same_step_nll_forward.launches` counts its launches."""
     return on_device(preds_v, same_step_nll_reference, _launch_fwd, preds_v,
                      z_pool, shift)
 
@@ -215,8 +268,9 @@ def same_step_nll_backward(g_nll: torch.Tensor, lse: torch.Tensor,
                            preds_v: torch.Tensor, z_pool: torch.Tensor,
                            shift: int):
     """(dpreds, dz). CPU tensors run `same_step_nll_backward_reference`;
-    CUDA tensors run the kernels, and `same_step_nll_backward.launches`
-    counts the launches."""
+    CUDA tensors run the kernels of `same_step_route` (one launch on "mma",
+    three on "simt"), and `same_step_nll_backward.launches` counts the calls
+    that launched them."""
     return on_device(preds_v, same_step_nll_backward_reference, _launch_bwd,
                      g_nll, lse, preds_v, z_pool, shift)
 

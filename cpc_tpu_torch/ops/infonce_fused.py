@@ -43,7 +43,8 @@ import torch
 
 from cpc_tpu_torch.ops._build import check_launch, load_library
 from cpc_tpu_torch.ops.infonce import (WIRE_DTYPES, check_labels,
-                                       first_argmax, on_device)
+                                       first_argmax, on_device,
+                                       tensor_core_route)
 
 
 def validity_mask_tm(T: int, K: int, B: int, Tp: int,
@@ -146,13 +147,7 @@ def heads_route(T: int, B: int, C: int, K: int, D: int, dtype: torch.dtype,
     parity configuration) and bf16 shapes that 16-byte copies do not fit:
     SIMT fp32 products, the backward three launches. Raises on inputs that
     no kernel takes."""
-    if dtype not in WIRE_DTYPES:
-        raise TypeError(f"p and z_tm must be one of {WIRE_DTYPES}, got "
-                        f"{dtype}")
-    if min(T, B, C, K, D) < 1:
-        raise ValueError(f"empty shape (T, B, C, K, D) = {(T, B, C, K, D)}")
-    mma = dtype in _MMA_DTYPES and D % 8 == 0 and aligned
-    return "mma" if mma else "simt"
+    return tensor_core_route((T, B, C, K, D), dtype, aligned, _MMA_DTYPES)
 
 
 def _route(p: torch.Tensor, z_tm: torch.Tensor, K: int) -> str:

@@ -46,14 +46,17 @@ STAGES = (
     ("GRU backward recurrence kernel",
      ("gru_bwd_resident_kernel", "gru_scan_bwd_kernel")),
     ("GRU dwh/dbh reduction kernels", ("gru_bwd_reduce", "gru_bwd_finish")),
-    # the tensor-core route (bf16 models), then the SIMT route's kernels
+    # the tensor-core route (bf16 models), then the SIMT route's kernels,
+    # of the fused heads and of the same-step pair on materialized preds
     ("fused heads + InfoNCE forward kernel",
      ("heads_fwd_mma", "heads_nll_fwd")),
     ("fused heads + InfoNCE backward kernels",
      ("heads_bwd_mma", "heads_delta", "heads_dz", "heads_dp")),
-    ("same-step InfoNCE forward kernel", ("same_step_fwd",)),
+    ("same-step InfoNCE forward kernel",
+     ("same_step_fwd_mma", "same_step_fwd_kernel")),
     ("same-step InfoNCE backward kernels",
-     ("same_step_delta", "same_step_dz", "same_step_dp")),
+     ("same_step_bwd_mma", "same_step_delta", "same_step_dz",
+      "same_step_dp")),
     # the wgmma route (bf16 models), then the SIMT route's kernels; dZ's
     # finishing kernel adds its row groups' partials
     ("all-steps InfoNCE forward kernel",
