@@ -13,8 +13,9 @@ Phases, in order; any failure exits non-zero:
    bf16 and fp32 (the resident route: wh in the shared memory of a
    thread-block cluster; checked), at a ragged (7, 3, 40) (the streamed
    route), and at one more shape of each route ((5, 17, 256): a ragged last
-   tile of a cluster; (3, 5, 512): wider than a cluster), each run twice
-   for bit-identical results; then both times at the slice's shape in bf16
+   tile of a cluster; (3, 5, 512): wider than a cluster) and at the
+   probes' extraction batch (128, 32, 256) bf16, each run twice for
+   bit-identical results; then both times at the slice's shape in bf16
    (median of CUDA-event-timed runs) and µs per step, with torch.nn.GRU
    (cuDNN; it also does the input projection) as the library yardstick,
    the resident kernel at 16 rows a cluster, the streamed kernel at the
@@ -148,7 +149,30 @@ Phases, in order; any failure exits non-zero:
    and the extraction rate;
 19. one full-width `scalogram_fast` step through the kernels against the
    plain step: loss, per-k accuracy, grad_norm and the grads of the first
-   Conv2d and of `proj`; then its steady step time and audio-s/s.
+   Conv2d and of `proj`; then its steady step time and audio-s/s;
+20. the probes on the card: `tpu_fast` trained 10 steps through the
+   training CLI into a workdir, then `cpc_tpu_torch.eval.cli.main
+   --battery` twice and `--probe both` on that workdir and its synthetic
+   corpus: the row's keys (the JAX battery's), accuracies finite in [0, 1],
+   the GRU kernel launched once a batch of the extraction, the same row
+   twice; then the extraction's rate, the fit's time (400 Adam steps at the
+   speaker probe's (N, 256) and the phone probe's (N*T, 512)), and the
+   battery's wall time beside the sum of its extraction and 17 fits;
+21. the streaming shapes of `gru_scan` (fp32, (T, B, H) = (1, 1, 256),
+   (3, 1, 256), (100, 1, 256), (6, 8, 256), (100, 8, 256), a nonzero h0)
+   against its plain version on the resident route, twice for
+   bit-identical results, with their times; then `StreamingExtractor` on
+   full-width `tpu_fast` (GRU) and `transformer_fast` models from seed 0
+   under torch's default TF32 settings: 10 s of seeded audio in chunks of
+   16 000, 2 560 and 1 001 samples, z and c against the portable model's
+   offline VALID forward, the GRU kernel once a push that emits; 8
+   lockstep streams with one reset_stream; ms a push and the real-time
+   factor at 1 and 8 streams, and `decode_step`'s ms a latent;
+22. the feature server through its entry point: `cpc_tpu_torch.serve.main
+   --workdir` on phase 20's workdir with i16 stdin and `--emit zc`: the
+   header's geometry, the frame count and summary, the frames bit for bit
+   against a StreamingExtractor fed the same chunks; the serve loop's rate
+   (header to summary) and the start-up (the load) apart.
 
 It prints a JSON line of the kernels it checked, each with its launches on
 its main path, its error against its plain version, its time, its plain
@@ -175,12 +199,18 @@ import time
 import numpy as np
 import torch
 
-from cpc_tpu_torch import CPCModel, extract_features, presets
-from cpc_tpu_torch.config import apply_overrides
+from cpc_tpu_torch import CPCModel, extract_features, presets, serve
+from cpc_tpu_torch.config import apply_overrides, from_dict
+from cpc_tpu_torch.data.dataset import ProbeDataset
 from cpc_tpu_torch.data.loader import device_prepare
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
 from cpc_tpu_torch.data.wavio import decode_mono, write_wav
 from cpc_tpu_torch.eval import cli as eval_cli
+from cpc_tpu_torch.eval import probes
+from cpc_tpu_torch.eval.cli import load_weights
+from cpc_tpu_torch.eval.streaming import (StreamingExtractor, fp32_exact,
+                                          portable_stream_model)
+from cpc_tpu_torch.models.transformer import carry_decode_model, decode_carry
 from cpc_tpu_torch.ops import (_build, attention_cuda, gru_cuda, infonce_cuda,
                                infonce_fused)
 from cpc_tpu_torch.ops.attention_cuda import (
@@ -225,13 +255,17 @@ from cpc_tpu_torch.train.train_step import (global_norm, init_state,
 TOL = {torch.float32: 1e-4,   # fp32 with TF32 off: summation order only
        torch.bfloat16: 2e-2}  # bf16 rounding of h and wh over 128 steps
 SLICE_SHAPE = (128, 64, 256)  # (T, B, H) of tpu_fast
+# the probes' extraction (phase 20) runs tpu_fast's bf16 GRU on batches of 32
+PROBE_SHAPE = (128, 32, 256)
 CASES = [(SLICE_SHAPE, torch.bfloat16), (SLICE_SHAPE, torch.float32),
-         ((7, 3, 40), torch.float32), ((7, 3, 40), torch.bfloat16)]
+         ((7, 3, 40), torch.float32), ((7, 3, 40), torch.bfloat16),
+         (PROBE_SHAPE, torch.bfloat16)]
 # one more shape of each route: a ragged last tile of a cluster's rows, and
 # a width beyond a cluster (its slice of wh does not fit a block)
 ROUTE_CASES = [((5, 17, 256), torch.bfloat16), ((5, 17, 256), torch.float32),
                ((3, 5, 512), torch.bfloat16), ((3, 5, 512), torch.float32)]
 ROUTES = {(128, 64, 256): "resident", (5, 17, 256): "resident",
+          PROBE_SHAPE: "resident",
           (7, 3, 40): "streamed", (3, 5, 512): "streamed"}
 
 
@@ -376,6 +410,14 @@ def phase3_gru(card: str) -> dict:
             probe_steps, H, "cuda")) * T / probe_steps
         fp32 = gru_inputs(T, B, H, torch.float32, seed=1)
         fp32_ms = cuda_ms(lambda: gru_scan(*fp32))
+        probe = gru_inputs(*PROBE_SHAPE, torch.bfloat16, seed=2)
+        probe_ms = cuda_ms(lambda: gru_scan(*probe))
+        probe_plain_ms = cuda_ms(lambda: gru_scan_reference(*probe), reps=5)
+        cudnn, px, ph0 = cudnn_gru(*PROBE_SHAPE)
+        probe_lib_ms = cuda_ms(lambda: cudnn(px, ph0))
+        Tp, Bp, Hp = PROBE_SHAPE
+        probe_bnd = bound([*probe, gru_scan(*probe)],
+                          2 * Tp * Bp * Hp * 3 * Hp)
     print(f"time {SLICE_SHAPE} bf16 on {card}: kernel {gru_fwd['ms']:.4f} "
           f"ms = {gru_fwd['ms'] / T * 1e3:.3f} us a step "
           f"({gru_cuda._TILE_ROWS} rows a cluster; {other_rows} rows "
@@ -386,6 +428,11 @@ def phase3_gru(card: str) -> dict:
           f"{streamed_ms:.4f} ms; the exchange and cluster barrier of {T} "
           f"steps alone (the serial floor) {floor_ms:.4f} ms = "
           f"{floor_ms / T * 1e3:.3f} us a step", flush=True)
+    print(f"time {PROBE_SHAPE} bf16 (the probes' batch) on {card}: kernel "
+          f"{probe_ms:.4f} ms, plain {probe_plain_ms:.4f} ms, bound "
+          f"{probe_bnd['bound_ms']:.6f} ms by {probe_bnd['bound_by']}, "
+          f"torch.nn.GRU (cuDNN, yardstick only) {probe_lib_ms:.4f} ms",
+          flush=True)
     return gru_fwd
 
 
@@ -662,15 +709,15 @@ def gru_backward_stages_ms(args, calls=5) -> dict:
     return out
 
 
-def cudnn_gru(T, B, H):
-    """torch.nn.GRU in bf16 on the card with its input x (T, B, H) and h0:
-    cuDNN's GRU, timed as the library yardstick and used by nothing else.
-    cuDNN does not flatten bf16 RNN weights, so torch warns; the per-call
-    copy it makes is 0.8 MB."""
-    gru = torch.nn.GRU(H, H).to("cuda", torch.bfloat16)
+def cudnn_gru(T, B, H, dtype=torch.bfloat16):
+    """torch.nn.GRU in `dtype` on the card with its input x (T, B, H) and
+    h0: cuDNN's GRU, timed as the library yardstick and used by nothing
+    else. cuDNN does not flatten bf16 RNN weights, so torch warns; the
+    per-call copy it makes is 0.8 MB."""
+    gru = torch.nn.GRU(H, H).to("cuda", dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((T, B, H), device="cuda", generator=gen).to(torch.bfloat16)
-    h0 = torch.zeros((1, B, H), device="cuda", dtype=torch.bfloat16)
+    x = torch.randn((T, B, H), device="cuda", generator=gen).to(dtype)
+    h0 = torch.zeros((1, B, H), device="cuda", dtype=dtype)
     return gru, x, h0
 
 
@@ -1914,6 +1961,422 @@ def scalogram_slice(card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------ phases 20-22
+# the keys of the JAX package's battery row (cpc_tpu/eval/battery.py, and
+# the eval CLI's checkpoint_step), held against it on the CPU by
+# tests/test_torch_port_probes.py
+BATTERY_KEYS = [
+    "checkpoint_step", "speaker_file_acc", "speaker_file_acc_std",
+    "speaker_file_last_acc", "speaker_file_last_acc_std",
+    "speaker_file_max_acc", "speaker_file_max_acc_std",
+    "speaker_file_eval_n", "speaker_acc", "speaker_acc_std",
+    "speaker_eval_n", "speaker_classes", "speaker_utt_acc",
+    "speaker_utt_eval_n", "phone_file_acc", "phone_file_acc_std",
+    "phone_snip_acc", "phone_eval_n", "phone_classes"]
+BATTERY_PROBE_SEEDS = 3  # the CLI's default
+PROBE_BATCH = PROBE_SHAPE[1]  # snippets a batch of the probes' extraction
+
+
+def eval_cli_run(argv) -> tuple:
+    """`cpc_tpu_torch.eval.cli.main(argv)` with every count set to 0 just
+    before; returns (its last JSON line, the launches, wall seconds)."""
+    for fn in COUNTED.values():
+        fn.launches = 0
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        rc = eval_cli.main(argv)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"eval cli {argv} returned {rc}")
+    line = json.loads(said.getvalue().strip().splitlines()[-1])
+    return line, {k: fn.launches for k, fn in COUNTED.items()
+                  if fn.launches}, wall
+
+
+def unit_interval(x) -> bool:
+    return isinstance(x, float) and math.isfinite(x) and 0.0 <= x <= 1.0
+
+
+def workdir_model(workdir: str):
+    """The model a workdir holds, on the card, as the eval CLI loads it."""
+    with open(os.path.join(workdir, "config.json")) as f:
+        cfg = from_dict(json.load(f))
+    model = CPCModel(cfg.model)
+    check(load_weights(model, workdir, cfg) == TRAIN_STEPS,
+          f"{workdir}: no step_{TRAIN_STEPS} checkpoint")
+    return cfg, model.to("cuda").eval()
+
+
+def phase20_probes(card: str, workdir: str) -> None:
+    """tpu_fast trained 10 steps through the training CLI into `workdir`,
+    then the battery (twice) and `--probe both` through the eval CLI on the
+    card: keys, accuracies in [0, 1], the GRU kernel once a batch of the
+    extraction, the same row twice; then the extraction's rate, the fit's
+    time at the phone probe's shape and the battery's wall time."""
+    train_cli_run("probes", "tpu_fast", [], TRAIN_STEPS,
+                  {k: 1 for k in GRU_KERNELS + HEADS_KERNELS},
+                  workdir=workdir)
+    cfg, model = workdir_model(workdir)
+    ds = ProbeDataset(os.path.join(workdir, "synthetic_corpus"),
+                      cfg.data.snippet_samples, cfg.data.snippet_samples,
+                      cfg.data.sample_rate)
+    layers = cfg.model.ar.num_layers
+
+    def batches(n):
+        return -(-min(len(ds), n) // PROBE_BATCH)
+
+    rows, walls = [], []
+    for _ in range(2):
+        row, got, wall = eval_cli_run(["--workdir", workdir, "--battery",
+                                       "--probe-seeds",
+                                       str(BATTERY_PROBE_SEEDS)])
+        want = {"gru_scan": (batches(len(ds)) + batches(200)) * layers}
+        check(got == want, f"battery launched {got}, expected {want}")
+        rows.append(row)
+        walls.append(wall)
+    row = rows[0]
+    check(list(row) == BATTERY_KEYS, f"battery keys {list(row)}")
+    check(row["checkpoint_step"] == TRAIN_STEPS, f"battery row {row}")
+    check(all(unit_interval(v) for k, v in row.items()
+              if k.endswith(("_acc", "_acc_std"))),
+          f"battery accuracies out of [0, 1]: {row}")
+    check(rows[1] == row, f"the battery differs between two runs: {rows}")
+    line, got, wall = eval_cli_run(["--workdir", workdir, "--probe", "both"])
+    want = {"gru_scan": 2 * batches(512) * layers}
+    check(got == want, f"--probe both launched {got}, expected {want}")
+    check(list(line) == ["checkpoint_step", "feature", "speaker_probe",
+                         "phone_probe"], f"--probe both keys {list(line)}")
+    check(all(unit_interval(line[k]["accuracy"])
+              for k in ("speaker_probe", "phone_probe")), f"{line}")
+    # the battery's fits (battery.py): per seed 4 speaker fits (file split
+    # of mean, last and max pooling; snippet split) and 1 phone fit (file
+    # split), then 1 utterance and 1 phone snippet-split fit
+    seeds = BATTERY_PROBE_SEEDS
+    spk_fits, ph_fits = 4 * seeds + 1, seeds + 1
+    print(f"probes: battery through cpc_tpu_torch.eval.cli.main in "
+          f"{walls[0]:.2f} and {walls[1]:.2f} s (model load, {len(ds)} + 200 "
+          f"snippets' extraction, {spk_fits} speaker and {ph_fits} phone fits "
+          f"of 400 steps at --probe-seeds {seeds}; identical rows): "
+          f"{json.dumps(row)}; --probe both in {wall:.2f} s: "
+          f"{json.dumps(line)}; launches as expected", flush=True)
+
+    sweeps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        frames, spk, spk_files = probes.extract_speaker_frame_features(
+            model, ds, max_snippets=len(ds))
+        sweeps.append(time.perf_counter() - t0)
+    audio_s = len(ds) * cfg.data.snippet_samples / cfg.data.sample_rate
+    pooled = probes.pool_time(frames, "mean")
+    tr, _ = probes._split_items(len(pooled), spk_files, "file", 0.25, 0)
+    spk_ms, spk_shape = fit_ms(pooled[tr], spk[tr], ds.num_speakers)
+    t0 = time.perf_counter()
+    feats, lab, files = probes.extract_phone_frame_features(
+        model, ds, feature="z", max_snippets=200)
+    ph_sweep = time.perf_counter() - t0
+    N, T, d = feats.shape
+    tr, _ = probes._split_items(N, files, "snippet", 0.25, 0)
+    ph_ms, ph_shape = fit_ms(feats[tr].reshape(-1, d), lab[tr].reshape(-1),
+                             int(lab.max()) + 1)
+    sweep = statistics.median(sweeps)
+    parts = sweep + ph_sweep + (spk_fits * spk_ms + ph_fits * ph_ms) / 1e3
+    print(f"probes on {card}: extraction of {len(ds)} snippets "
+          f"({audio_s:.2f} audio-s, bf16, batches of {PROBE_BATCH}) "
+          f"{sweep:.3f} s (median of 3) = {audio_s / sweep:.1f} audio-s/s, "
+          f"of the phone probe's 200 {ph_sweep:.3f} s; the fit, 400 Adam "
+          f"steps fp32 (median of 3), at the speaker probe's file-split "
+          f"train set {spk_shape}: {spk_ms:.1f} ms = {spk_ms / 400:.3f} ms a "
+          f"step, at the phone probe's snippet-split train frames "
+          f"{ph_shape}: {ph_ms:.1f} ms = {ph_ms / 400:.3f} ms a step; the "
+          f"battery's extraction and fits from these parts: {parts:.2f} s "
+          f"of its {min(walls):.2f} s wall", flush=True)
+
+
+def fit_ms(x: np.ndarray, y: np.ndarray, num_classes: int) -> tuple:
+    """Median ms of 3 runs of `_fit_linear`'s 400 steps on (x, y) on the
+    card, and x's shape."""
+    x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda()
+    y = torch.from_numpy(np.asarray(y, np.int64)).cuda()
+    w0, b0 = probes._init_linear(x.shape[1], num_classes, 0)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probes._fit_linear(x, y, w0, b0, steps=400, lr=1e-2)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs), tuple(x.shape)
+
+
+# (T, B, H) of the streams' pushes, fp32 with a carried h0: a few latents
+# or a second's 100 at B = 1, and a few or a second's at phase 21's 8 streams
+STREAM_GRU_SHAPES = [(1, 1, 256), (3, 1, 256), (100, 1, 256), (6, 8, 256),
+                     (100, 8, 256)]
+STREAM_SECONDS = 10
+STREAM_CHUNKS = (16000, 2560, 1001)  # a multiple of the hop, and two not
+# stream against offline VALID forward, as |a - b| <= atol + rtol |b|: the
+# JAX test's tolerances (tests/test_streaming.py)
+STREAM_TOL = {"z": (1e-5, 1e-5), "c": (1e-5, 2e-5)}
+
+
+def stream_kernel_checks(card: str) -> None:
+    """`gru_scan` against its plain version at the shapes a stream gives it
+    (fp32, B = 1 or 8, a few latents a push, a nonzero h0), on the resident
+    route, twice for bit-identical results; then its times there."""
+    with torch.inference_mode():
+        for n, (T, B, H) in enumerate(STREAM_GRU_SHAPES):
+            route = gru_route(B, H, torch.float32)
+            check(route == "resident", f"{(T, B, H)} takes {route}")
+            args = gru_inputs(T, B, H, torch.float32, seed=40 + n)
+            out, again = gru_scan(*args), gru_scan(*args)
+            ref = gru_scan_reference(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again),
+                  f"gru_scan {(T, B, H)} differs between two runs")
+            err = (out - ref).abs().max().item()
+            check(err <= TOL[torch.float32],
+                  f"gru_scan {(T, B, H)} error {err}")
+            ms = cuda_ms(lambda: gru_scan(*args), reps=10, inner=20,
+                         graph=True)
+            plain_ms = cuda_ms(lambda: gru_scan_reference(*args), reps=5)
+            cudnn, x, h0 = cudnn_gru(T, B, H, torch.float32)
+            lib_ms = cuda_ms(lambda: cudnn(x, h0), reps=10, inner=20,
+                             graph=True)
+            bnd = bound([*args, out], 2 * T * B * H * 3 * H, torch.float32)
+            print(f"gru_scan vs plain {(T, B, H)} fp32 (resident route, "
+                  f"stream shape): max abs err {err:.3e} (tol "
+                  f"{TOL[torch.float32]:.0e}); two runs bit-identical; on "
+                  f"{card}: kernel {ms:.4f} ms = {ms / T * 1e3:.3f} us a "
+                  f"step (CUDA-graph replay), plain {plain_ms:.4f} ms, bound "
+                  f"{bnd['bound_ms']:.6f} ms by {bnd['bound_by']}, "
+                  f"torch.nn.GRU fp32 (cuDNN, TF32 off; yardstick only, it "
+                  f"also does the input projection) {lib_ms:.4f} ms",
+                  flush=True)
+
+
+def held(name: str, got, want) -> float:
+    """max |got - want|, checked against STREAM_TOL[name]."""
+    rtol, atol = STREAM_TOL[name]
+    err = float(np.abs(got - want).max())
+    check(got.shape == want.shape, f"{name}: {got.shape} vs {want.shape}")
+    check(bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want))),
+          f"stream {name} off the offline forward by {err:.3e}")
+    return err
+
+
+def offline_valid(pm, waves):
+    """(z, c) of the portable model's offline VALID forward, fp32 (TF32
+    off), of `waves` (B, L)."""
+    with torch.no_grad(), fp32_exact():
+        z = pm.encode(torch.from_numpy(waves).cuda())
+        c = pm.gar(z)
+    return z.cpu().numpy(), c.cpu().numpy()
+
+
+def feed(ex, waves, chunk):
+    """Pushes `waves` ((L,) or (B, L)) `chunk` samples at a time, every count
+    set to 0 just before; returns (z, c, seconds of each push, launches,
+    pushes that emitted latents)."""
+    for fn in COUNTED.values():
+        fn.launches = 0
+    zs, cs, secs, emitted = [], [], [], 0
+    for a in range(0, waves.shape[-1], chunk):
+        t0 = time.perf_counter()
+        z, c = ex.push(waves[..., a:a + chunk])
+        secs.append(time.perf_counter() - t0)
+        emitted += z.shape[-2] > 0
+        zs.append(z)
+        cs.append(c)
+    counts = {k: fn.launches for k, fn in COUNTED.items() if fn.launches}
+    return (np.concatenate(zs, axis=-2), np.concatenate(cs, axis=-2), secs,
+            counts, emitted)
+
+
+def phase21_streams(card: str) -> None:
+    """Row 1 at the streaming shapes, then StreamingExtractor at full width
+    (tpu_fast's GRU, transformer_fast) with torch's default TF32 settings
+    in force (cuDNN may take TF32): chunks of 16 000, 2 560 and 1 001
+    samples against the offline VALID forward, 8 streams with one
+    reset_stream, launches, push times and decode_step's time."""
+    stream_kernel_checks(card)
+    kept = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True      # torch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name in ("tpu_fast", "transformer_fast"):
+            stream_model(card, name)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = kept
+
+
+def stream_model(card: str, name: str) -> None:
+    cfg = presets.by_name(name)
+    model = CPCModel(cfg.model, device="cuda",
+                     generator=torch.Generator().manual_seed(0)).eval()
+    pm = portable_stream_model(cfg.model, device="cuda")
+    pm.load_state_dict(model.state_dict())
+    pm.eval()
+    rate = cfg.data.sample_rate
+    L = STREAM_SECONDS * rate
+    wave = (np.random.default_rng(21).standard_normal(L) * 0.1
+            ).astype(np.float32)
+    z_off, c_off = offline_valid(pm, wave[None])
+    with torch.no_grad():   # the same forward with the TF32 it would take
+        z_tf32 = pm.encode(torch.from_numpy(wave[None]).cuda()).cpu().numpy()
+    print(f"stream {name}: the offline forward under torch's default TF32 "
+          f"settings is {np.abs(z_tf32 - z_off).max():.3e} from fp32 on z "
+          f"(what the extractor's fp32_exact keeps out)", flush=True)
+    gru = cfg.model.ar.kind == "gru"
+    layers = cfg.model.ar.num_layers
+    for chunk in STREAM_CHUNKS:
+        ex = StreamingExtractor(model)
+        z, c, secs, counts, emitted = feed(ex, wave, chunk)
+        want = {"gru_scan": emitted * layers} if gru else {}
+        check(counts == want, f"{name} stream launched {counts}, expected "
+              f"{want}")
+        ez, ec = held("z", z, z_off[0]), held("c", c, c_off[0])
+        line = (f"stream {name} chunks of {chunk}: {len(z)} latents, z "
+                f"{ez:.3e}, c {ec:.3e} from the offline VALID forward (tol "
+                f"rtol 1e-5 + atol 1e-5 / 2e-5); launches {counts}")
+        if chunk == rate:
+            steady = statistics.median(secs[1:]) * 1e3
+            line += (f"; on {card}: first push {secs[0] * 1e3:.2f} ms, then "
+                     f"{steady:.2f} ms a push of {chunk} samples (median of "
+                     f"{len(secs) - 1}) = real-time factor "
+                     f"{chunk / rate / steady * 1e3:.1f} audio-s/s")
+        print(line, flush=True)
+
+    # 8 lockstep streams, stream 3 recycled after 5 pushes
+    B, chunk, at = 8, rate, 5 * rate
+    waves = (np.random.default_rng(22).standard_normal((B, L)) * 0.1
+             ).astype(np.float32)
+    fresh = (np.random.default_rng(23).standard_normal(L - at) * 0.1
+             ).astype(np.float32)
+    ex = StreamingExtractor(model, n_streams=B)
+    z1, c1, s1, n1, e1 = feed(ex, waves[:, :at], chunk)
+    resid = ex.pending_samples
+    ex.reset_stream(3)
+    later = waves[:, at:].copy()
+    later[3] = fresh
+    z2, c2, s2, n2, e2 = feed(ex, later, chunk)
+    want = {"gru_scan": e2 * layers} if gru else {}
+    check(n2 == want, f"{name} 8 streams launched {n2}, expected {want}")
+    zo, co = offline_valid(pm, waves)
+    keep = [i for i in range(B) if i != 3]
+    z_all, c_all = np.concatenate([z1, z2], 1), np.concatenate([c1, c2], 1)
+    ez = held("z", z_all[keep], zo[keep])
+    ec = held("c", c_all[keep], co[keep])
+    zr, cr = offline_valid(pm, np.concatenate(
+        [np.zeros(resid, np.float32), fresh])[None])
+    er = max(held("z", z2[3], zr[0]), held("c", c2[3], cr[0]))
+    secs = s1[1:] + s2
+    steady = statistics.median(secs) * 1e3
+    print(f"stream {name} x {B} streams, stream 3 reset after {at} samples: "
+          f"z {ez:.3e}, c {ec:.3e} from the offline forward, the reset "
+          f"stream {er:.3e} from zeros({resid}) + its new audio; on {card}: "
+          f"first push {s1[0] * 1e3:.2f} ms, then {steady:.2f} ms a push of "
+          f"{B} x {chunk} samples (median of {len(secs)}) = real-time "
+          f"factor {B * chunk / rate / steady * 1e3:.1f} audio-s/s",
+          flush=True)
+
+    if not gru:   # decode_step alone, one latent a call at B = 1
+        tr = carry_decode_model(cfg.model.encoder.d_enc, pm.config.ar)
+        tr.load_state_dict(pm.gar.state_dict())
+        tr.to("cuda").eval()
+        carry = decode_carry(cfg.model.ar, 1, device="cuda")
+        z_t = torch.randn(1, cfg.model.encoder.d_enc, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+        steps = 200
+        with torch.no_grad(), fp32_exact():
+            for _ in range(10):
+                tr.decode_step(z_t, carry)
+            carry = decode_carry(cfg.model.ar, 1, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                _, carry = tr.decode_step(z_t, carry)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        print(f"decode_step of {name} (d_ar {cfg.model.ar.d_ar}, "
+              f"{layers} layers, KV cache of {cfg.model.ar.max_len}, fp32) "
+              f"on {card}: {ms:.3f} ms a latent at B = 1 ({steps} latents, "
+              f"host clock with a CUDA sync)", flush=True)
+
+
+def phase22_serve(card: str, workdir: str) -> None:
+    """`cpc_tpu_torch.serve.main` on phase 20's workdir, i16 stdin, --emit
+    zc: the header's geometry, the frame count and summary, the frames bit
+    for bit against a StreamingExtractor fed the same chunks, launches,
+    and the server's rate."""
+    cfg, model = workdir_model(workdir)
+    rate, chunk, seconds = cfg.data.sample_rate, 16000, 30
+    q = np.clip(np.random.default_rng(24).standard_normal(seconds * rate)
+                * 3000, -32768, 32767).astype("<i2")
+    out, err = io.BytesIO(), StampedText()
+    for fn in COUNTED.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = serve.main(["--workdir", workdir, "--emit", "zc", "--in-format",
+                     "i16"], stdin=io.BytesIO(q.tobytes()), stdout=out,
+                    stderr=err)
+    wall = time.perf_counter() - t0
+    # the load ends where the header is written, the serve loop where the
+    # summary is
+    load_s = err.stamp('"frame_dim"') - t0
+    loop_s = err.stamp('"frames"') - err.stamp('"frame_dim"')
+    counts = {k: fn.launches for k, fn in COUNTED.items() if fn.launches}
+    check(rc == 0, f"serve returned {rc}")
+    lines = [json.loads(x) for x in err.getvalue().splitlines()]
+    header, summary = lines[0], lines[-1]
+    d_enc, d_ar = cfg.model.encoder.d_enc, cfg.model.ar.d_ar
+    check(header == {"emit": "zc", "frame_dim": d_enc + d_ar,
+                     "frame_stride_samples": 160,
+                     "receptive_field_samples": 465, "d_enc": d_enc,
+                     "d_ar": d_ar}, f"serve header {header}")
+    n = (len(q) - 465) // 160 + 1
+    check(summary == {"frames": n, "dropped_tail_samples": len(q) - n * 160,
+                      "dropped_partial_bytes": 0}, f"serve summary {summary}")
+    frames = np.frombuffer(out.getvalue(), "<f4").reshape(-1, d_enc + d_ar)
+    pushes = -(-len(q) // chunk)
+    check(counts == {"gru_scan": pushes * cfg.model.ar.num_layers},
+          f"serve launched {counts}")
+    ex = StreamingExtractor(model)
+    deq = q.astype(np.float32) / 32768.0
+    z, c, _, _, _ = feed(ex, deq, chunk)
+    check(frames.shape == (n, d_enc + d_ar)
+          and np.array_equal(frames, np.concatenate([z, c], 1)),
+          "served frames differ from the extractor's")
+    check(bool(np.isfinite(frames).all()), "non-finite served frames")
+    print(f"serve: cpc_tpu_torch.serve.main --workdir (tpu_fast, step "
+          f"{TRAIN_STEPS}) --emit zc --in-format i16, {seconds} audio-s in "
+          f"chunks of {chunk}: header {json.dumps(header)}, summary "
+          f"{json.dumps(summary)}, frames bit-equal to the extractor's, "
+          f"launches {counts}; on {card}: the serve loop (header to "
+          f"summary: {-(-len(q) // chunk)} chunks read, pushed and written) "
+          f"{loop_s * 1e3:.2f} ms = {seconds / loop_s:.1f} audio-s/s; "
+          f"start-up (arguments, config, checkpoint load, model to the "
+          f"card) {load_s * 1e3:.1f} ms; whole call {wall * 1e3:.1f} ms",
+          flush=True)
+
+
+class StampedText(io.StringIO):
+    """A text stream that keeps the host clock at each write."""
+
+    def __init__(self):
+        super().__init__()
+        self.writes = []
+
+    def write(self, text: str) -> int:
+        self.writes.append((time.perf_counter(), text))
+        return super().write(text)
+
+    def stamp(self, key: str) -> float:
+        """The time of the first write that holds `key`."""
+        return next(t for t, text in self.writes if key in text)
+
+
 def main() -> None:
     # 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false; "
@@ -2026,6 +2489,13 @@ def main() -> None:
     scalogram_slice(card)
     step_vs_plain(card, "scalogram", SCALOGRAM_WATCHED, "scalogram_fast", [],
                   SCALOGRAM_STEP_TOL)
+
+    # 20-22. evaluation and serving: the probes and the battery, streams,
+    # the feature server
+    with tempfile.TemporaryDirectory() as workdir:
+        phase20_probes(card, workdir)
+        phase21_streams(card)
+        phase22_serve(card, workdir)
 
     sources = {
         "gru_scan": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:57"),

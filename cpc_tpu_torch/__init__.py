@@ -5,10 +5,12 @@ against (tests/test_torch_port_*.py), mirrors its module layout and names,
 and imports no jax. Ported so far: the feature-extraction path (configs,
 waveform prep, the conv1d encoder and the scalogram encoder with its
 on-device front end, GRU gar, CPC wrapper, weights from the JAX package,
-`extract_features` and its CLI) and single-device training (same-step
-InfoNCE, fused heads, optax's Adam, trainer with exact resume, `python -m
-cpc_tpu_torch.train`), with the GRU or the causal transformer as the
-context network. Every kernel the JAX package wrote in Pallas has a
+`extract_features` and its CLI), evaluation and serving (the linear probes
+and their battery, `python -m cpc_tpu_torch.eval --battery`; the streaming
+extractor and `python -m cpc_tpu_torch.serve`) and single-device training
+(same-step InfoNCE, fused heads, optax's Adam, trainer with exact resume,
+`python -m cpc_tpu_torch.train`), with the GRU or the causal transformer as
+the context network. Every kernel the JAX package wrote in Pallas has a
 hand-written CUDA counterpart (csrc/): the GRU recurrence, the three InfoNCE
 paths and the causal flash attention, forward and backward, and the conv
 encoder's pyramid, forward (`encoder.use_pallas`).

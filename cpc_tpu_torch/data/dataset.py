@@ -11,8 +11,12 @@ the same index over the same corpus (tests/test_torch_port_data.py).
 
 WAV only: a `.flac` file is listed, as the JAX package lists it, and raises
 when it is decoded, as does a file whose rate is not the configured one
-(FLAC and resampling wait, ROADMAP.md §A8). The index arithmetic for such a
+(FLAC and resampling wait, ROADMAP.md A8). The index arithmetic for such a
 file is the JAX package's, so the index itself never differs.
+
+`ProbeDataset` adds the downstream probes' labels, as the JAX package's
+does: the speaker from the directory layout, and per-sample phone labels
+from a sibling `<utt>.phones.npy` (the synthetic corpus writes both).
 """
 
 from __future__ import annotations
@@ -152,3 +156,39 @@ class SnippetDataset(FlatSnippetIndex):
         """Snippet in the int16 wire format (quantized once per file)."""
         path, off = self.locate(idx)
         return self._cache.get_int16(path)[off:off + self.snippet_samples]
+
+    def speaker_of(self, idx: int) -> str:
+        """Speaker id from the LibriSpeech-style path layout
+        <root>/<speaker>/<chapter>/<utt> (used by the speaker probe)."""
+        path, _ = self.locate(idx)
+        rel = os.path.relpath(path, self.corpus_dir)
+        return rel.split(os.sep)[0]
+
+
+class ProbeDataset(SnippetDataset):
+    """SnippetDataset that also yields labels for the downstream probes.
+
+    Speaker labels come from the directory layout; phone labels from sibling
+    `<utt>.phones.npy` per-sample label files when present. A label window
+    that is short or missing gives None (the phone probe skips the snippet).
+    A file whose rate is not the configured one raises at decode, before its
+    labels are read (resampling waits, ROADMAP.md A8)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        speakers = sorted({self.speaker_of(int(self._cum[i]))
+                           for i in range(len(self.files))})
+        self.speaker_to_id = {s: i for i, s in enumerate(speakers)}
+        self.num_speakers = len(speakers)
+
+    def item_with_labels(self, idx: int):
+        """(snippet float32 (S,), speaker id, phone labels (S,) or None)."""
+        path, off = self.locate(idx)
+        x = self._cache.get(path)[off:off + self.snippet_samples]
+        spk = self.speaker_to_id[self.speaker_of(idx)]
+        phones = None
+        lab_path = os.path.splitext(path)[0] + ".phones.npy"
+        if os.path.exists(lab_path):
+            w = np.load(lab_path)[off:off + self.snippet_samples]
+            phones = w if len(w) == self.snippet_samples else None
+        return x, spk, phones

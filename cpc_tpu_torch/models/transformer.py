@@ -41,7 +41,7 @@ position per stream. It accepts both carry forms, a tuple of per-layer
 buffers and one stacked (L, B, S, H, Dh) tensor, and writes the new keys
 and values into the buffers it was given, in place, where the JAX step
 returns new arrays; `pos` is returned new. The streaming extractor around
-it is ROADMAP.md §A11.
+it is `eval/streaming.py::StreamingExtractor`.
 """
 
 from __future__ import annotations

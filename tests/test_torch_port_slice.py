@@ -242,6 +242,8 @@ SLICE_MODULES = [
     "cpc_tpu_torch.data.wavio", "cpc_tpu_torch.data.dataset",
     "cpc_tpu_torch.data.synthetic", "cpc_tpu_torch.data.loader",
     "cpc_tpu_torch.eval.features", "cpc_tpu_torch.eval.cli",
+    "cpc_tpu_torch.eval.probes", "cpc_tpu_torch.eval.battery",
+    "cpc_tpu_torch.eval.streaming", "cpc_tpu_torch.serve",
     "cpc_tpu_torch.eval.__main__", "cpc_tpu_torch.train.train_step",
     "cpc_tpu_torch.train.metrics", "cpc_tpu_torch.train.checkpoint",
     "cpc_tpu_torch.train.trainer", "cpc_tpu_torch.train.cli",
