@@ -172,14 +172,44 @@ Phases, in order; any failure exits non-zero:
    --workdir` on phase 20's workdir with i16 stdin and `--emit zc`: the
    header's geometry, the frame count and summary, the frames bit for bit
    against a StreamingExtractor fed the same chunks; the serve loop's rate
-   (header to summary) and the start-up (the load) apart.
+   (header to summary) and the start-up (the load) apart;
+23. data parallelism (`dp_global_negatives`, global batch 64) on the one
+   card: (a) a one-rank NCCL group (`multihost.initialize` on 127.0.0.1)
+   runs a full-width step bit-equal to the `tpu_fast` step from the same
+   weights (metrics, every gradient, the parameters after the update; cuDNN
+   deterministic), then both steps' times and the gather's and the
+   gradients' average's alone; (b) two ranks sharing cuda:0 through gloo,
+   asked for by name (this script again as `--dp-rank R`, killed together
+   if one fails), one step of each loss path (fused, fuse_heads=false,
+   all_steps; the fused path in fp32 too) on their 32 rows each against one
+   process's step on the concatenated 64 through the same kernels: loss,
+   per-k accuracy, grad_norm and phase 7's two watched gradients at phase
+   7's tolerances (grad_norm at 1e-4: each rank rounds its bf16 dz of the
+   pool before the ranks' sum), the ranks' parameters bit-equal, the
+   path's loss kernels and the GRU's once a rank and the others never;
+   (c) the kernels at the per-rank
+   shapes (heads (128, 32, 64, 12, 512), same-step and all-steps
+   (32, 128, 64, 12, 512), shift 32; the GRU backward at (128, 32, 256))
+   against their plain versions on phases 5 and 8's routes and
+   tolerances, timed beside tpu_fast's; (d) `cpc_tpu_torch.train.cli.main
+   --coordinator 127.0.0.1:P --num-processes 1 --process-id 0` for 10
+   steps (the launches counted), then 5 + 5 with `--resume`, bit-equal;
+   and `python -m cpc_tpu_torch.train --num-processes 2` on the one card
+   under `--device cuda`, which must exit non-zero naming the cause.
+
+With `--dp-cards N` it runs data parallelism across N cards under NCCL
+instead, what one card cannot run (`dp_cards_main`).
 
 It prints a JSON line of the kernels it checked, each with its launches on
 its main path, its error against its plain version, its time, its plain
 version's time, the least time the card could take (`bound_ms`: the larger
 of the bytes it must move over 3.35 TB/s and its operations over the peak
 rate of its input type, from this run's tensors) and, where one PyTorch
-call computes the same function, that call's time (`library_ms`); and, last,
+call computes the same function, that call's time (`library_ms`), its
+launches a rank under data parallelism (`dp_launches`: the CLI's one-rank
+run of phase 23(d) for the GRU's and the fused heads' kernels, one step of
+phase 23(b) for the other paths' loss kernels) and its time at the DP
+shape (`dp_ms`, phase 23(c); null for a kernel off the DP path); and, last,
 one JSON object naming the device.
 """
 
@@ -191,18 +221,21 @@ import io
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cpc_tpu_torch import CPCModel, extract_features, presets, serve
 from cpc_tpu_torch.config import apply_overrides, from_dict
-from cpc_tpu_torch.data.dataset import ProbeDataset
-from cpc_tpu_torch.data.loader import device_prepare
+from cpc_tpu_torch.data.dataset import ProbeDataset, SnippetDataset
+from cpc_tpu_torch.data.loader import Batcher, device_prepare, to_device
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
 from cpc_tpu_torch.data.wavio import decode_mono, write_wav
 from cpc_tpu_torch.eval import cli as eval_cli
@@ -247,6 +280,7 @@ from cpc_tpu_torch.ops.infonce_fused import (_HeadsNllPlain,
                                              heads_nll_reference,
                                              heads_route, reduce_heads_nll)
 from cpc_tpu_torch.ops.scalogram import scalogram
+from cpc_tpu_torch.parallel import dp, multihost
 from cpc_tpu_torch.train import cli as train_cli
 from cpc_tpu_torch.train.checkpoint import CheckpointManager
 from cpc_tpu_torch.train.train_step import (global_norm, init_state,
@@ -500,11 +534,11 @@ def heads_inputs(T, B, C, K, D, dtype, seed):
     return dev(p, dtype), dev(z, dtype), dev(g, torch.float32)
 
 
-def heads_checks(errs: dict) -> None:
-    """The fused heads kernels against their plain versions at
-    `HEADS_CASES`; raises on the first disagreement and keeps the largest
-    absolute errors in `errs`."""
-    for n, ((T, B, C, K, D, shift), dtype) in enumerate(HEADS_CASES):
+def heads_checks(errs: dict, cases=HEADS_CASES) -> None:
+    """The fused heads kernels against their plain versions at `cases`;
+    raises on the first disagreement and keeps the largest absolute errors
+    in `errs`."""
+    for n, ((T, B, C, K, D, shift), dtype) in enumerate(cases):
         route = heads_route(T, B, C, K, D, dtype)
         check(route == HEADS_ROUTES[dtype],
               f"heads {(T, B, C, K, D)} {dtype} takes {route}")
@@ -1037,8 +1071,41 @@ def phase8_kernels(card: str) -> dict:
     bound_by}}."""
     errs = {f"{k}_nll_{half}": 0.0 for k in LOSS_KERNELS
             for half in ("forward", "backward")}
+    loss_checks(errs, LOSS_CASES)
+    out = {}
+    for shape in (LOSS_SLICE, LOSS_LONG):
+        times = loss_times_ms(shape, tuple(LOSS_KERNELS))
+        if shape == LOSS_SLICE:
+            out = times
+        print_loss_times(card, shape, times)
+    for name, m in out.items():
+        m.update(max_abs_err=errs[name], library_ms=None)
+    return out
+
+
+def print_loss_times(card: str, shape, times: dict) -> None:
+    for name, m in times.items():
+        simt = f" [SIMT kernels of the same call {m['simt_ms']:.4f} " \
+            f"ms]" if "simt_ms" in m else ""
+        print(f"time {name} at {shape[:5]} shift {shape[5]}, bf16, on "
+              f"{card}: kernel {m['ms']:.4f} ms = {m['tflops']:.1f} "
+              f"TFLOP/s{simt}, plain {m['plain_ms']:.4f} ms, bound "
+              f"{m['bound_ms']:.4f} ms by {m['bound_by']}", flush=True)
+    if "product_ms" in times.get("allsteps_nll_forward", {}):
+        m = times["allsteps_nll_forward"]
+        print(f"time of the all-steps score product alone on cuBLAS "
+              f"(torch.matmul of (R, D) and (D, N) bf16, another "
+              f"function: a yardstick, not library_ms) at "
+              f"{shape[:5]} on {card}: {m['product_ms']:.4f} ms = "
+              f"{m['product_tflops']:.1f} TFLOP/s", flush=True)
+
+
+def loss_checks(errs: dict, cases) -> None:
+    """The same-step and all-steps kernels against their plain versions at
+    `cases`; raises on the first disagreement and keeps the largest
+    absolute errors in `errs`."""
     with torch.inference_mode():
-        for n, ((B, T, C, K, D, shift), dtype) in enumerate(LOSS_CASES):
+        for n, ((B, T, C, K, D, shift), dtype) in enumerate(cases):
             preds_v, z, gs = loss_inputs(B, T, C, K, D, dtype, seed=40 + n)
             for kind, (fwd, fwd_ref, bwd, bwd_ref) in LOSS_KERNELS.items():
                 what = f"{kind} {(B, T, C, K, D)} shift {shift} " \
@@ -1101,29 +1168,6 @@ def phase8_kernels(card: str) -> dict:
                         LOSS_SLICE and dtype == torch.bfloat16:
                     worse_flips_fail(gs[kind], r_lse, preds_v, z, shift,
                                      want)
-
-    out = {}
-    for shape in (LOSS_SLICE, LOSS_LONG):
-        times = loss_times_ms(shape, tuple(LOSS_KERNELS))
-        if shape == LOSS_SLICE:
-            out = times
-        for name, m in times.items():
-            simt = f" [SIMT kernels of the same call {m['simt_ms']:.4f} " \
-                f"ms]" if "simt_ms" in m else ""
-            print(f"time {name} at {shape[:5]}, bf16, on {card}: kernel "
-                  f"{m['ms']:.4f} ms = {m['tflops']:.1f} TFLOP/s{simt}, "
-                  f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} "
-                  f"ms by {m['bound_by']}", flush=True)
-        if "product_ms" in times.get("allsteps_nll_forward", {}):
-            m = times["allsteps_nll_forward"]
-            print(f"time of the all-steps score product alone on cuBLAS "
-                  f"(torch.matmul of (R, D) and (D, N) bf16, another "
-                  f"function: a yardstick, not library_ms) at "
-                  f"{shape[:5]} on {card}: {m['product_ms']:.4f} ms = "
-                  f"{m['product_tflops']:.1f} TFLOP/s", flush=True)
-    for name, m in out.items():
-        m.update(max_abs_err=errs[name], library_ms=None)
-    return out
 
 
 def same_step_flips(out: str, got, want, check_it: bool) -> str:
@@ -2377,6 +2421,577 @@ class StampedText(io.StringIO):
         return next(t for t, text in self.writes if key in text)
 
 
+# --------------------------------------------------------------- phase 23
+# Data parallelism with cross-replica negatives (dp_global_negatives). The
+# card is one: NCCL runs a world of one rank; the cross-rank numerics run as
+# two ranks sharing the card through gloo, asked for by name (their times
+# are no speeds).
+DP_WORLD = 2
+# path: (--set overrides of dp_global_negatives, the loss path it takes);
+# the fused path in fp32 too, where the ranks' sums differ from one
+# process's in order only
+DP_PATHS = {"fused": ([], "fused"),
+            "fuse_heads=false": (["model.loss.fuse_heads=false"],
+                                 "fuse_heads=false"),
+            "all_steps": (["model.loss.negatives=all_steps"], "all_steps"),
+            "fused fp32": (["model.dtype=float32",
+                            "model.loss.pallas_bf16=false"], "fused")}
+DP_WATCHED = ("gar.layer0.wh", "prediction_heads.weight")
+# the per-rank shapes of the DP step's kernels, global batch 64 = 2 x 32,
+# rank 1's shift: heads (T, B, C, K, D, shift), the same-step and
+# all-steps kernels (B, T, C, K, D, shift), the GRU (T, B, H)
+DP_HEADS = (128, 32, 64, 12, 512, 32)
+DP_LOSS = (32, 128, 64, 12, 512, 32)
+DP_GRU = (128, 32, 256)
+DP_CLI_STEPS = 10
+# The two ranks against one process on the concatenated batch, through the
+# same kernels: the ranks' averages of loss, accuracy and gradients sum in
+# another order than one process's, and in bf16 each rank's dz of the pool
+# is rounded to bf16 before the ranks' sum (fp32, then rounded once), where
+# one process rounds its sum once: the encoder's gradients, and grad_norm
+# with them, move by about a bf16 rounding of dz. Phase 7's tolerances
+# (STEP_TOL) but for grad_norm, 1e-4. Measured on an H100 80GB HBM3 at
+# 700 W, fused path, bf16: loss 0, acc 1.9e-9, grad_norm 3.6e-5, grads
+# 5.7e-6 (wh) and 1.4e-6 (W) absolute, 3.4e-3 and 3.3e-3 of their largest
+# entry.
+DP_TOL = dict(STEP_TOL, grad_norm=1e-4)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_batch(cfg) -> np.ndarray:
+    """The seeded global int16 batch of phases 7 and 10."""
+    B, S = cfg.data.batch_size, cfg.data.snippet_samples
+    return np.clip(np.random.default_rng(3).standard_normal((B, S)) * 3000,
+                   -32768, 32767).astype(np.int16)
+
+
+def dp_config(path: str):
+    return apply_overrides(presets.dp_global_negatives(), DP_PATHS[path][0])
+
+
+def phase23a_one_rank(card: str) -> dict:
+    """A full-width dp_global_negatives step on a one-rank NCCL group
+    against the tpu_fast step without a mesh, from the same weights on the
+    same batch: bit-equal, with cuDNN's deterministic algorithms (both
+    steps run the same convolutions; its default wgrad algorithms need not
+    give the same bits twice); then both steps' times and the DP layer's
+    collectives alone, under the default settings."""
+    mesh = multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                                device="cuda")
+    try:
+        check(mesh.device == torch.device("cuda", 0)
+              and dist.get_backend() == "nccl", f"{mesh}")
+        cfgs = (presets.tpu_fast(), presets.dp_global_negatives())
+        models = [init_state(c, "cuda") for c in cfgs]
+        steps = [make_step_fns(cfgs[0], models[0]),
+                 make_step_fns(cfgs[1], models[1], mesh)]
+        batch = torch.from_numpy(dp_batch(cfgs[1])).cuda()
+        with forced("deterministic", True, module=torch.backends.cudnn):
+            m0, m1 = (s.train_step(batch) for s in steps)
+            torch.cuda.synchronize()
+        diffs = [k for k in m0 if not torch.equal(m0[k], m1[k])]
+        named = list(zip(models[0].named_parameters(),
+                         models[1].parameters()))
+        diffs += [f"grad {k}" for (k, a), b in named
+                  if not torch.equal(a.grad, b.grad)]
+        diffs += [f"param {k}" for (k, a), b in named if not torch.equal(a, b)]
+        print(f"dp (a): one-rank NCCL dp_global_negatives step vs the "
+              f"tpu_fast step (bf16, batch 64, cuDNN deterministic): loss "
+              f"{m1['loss'].item():.6f} vs {m0['loss'].item():.6f}, "
+              f"grad_norm {m1['grad_norm'].item():.6f} vs "
+              f"{m0['grad_norm'].item():.6f}; metrics, the "
+              f"{len(named)} gradients and the parameters after the update "
+              f"bit-equal: {not diffs} {diffs[:5]}", flush=True)
+        check(not diffs, f"one-rank DP step differs from the step: {diffs}")
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        for s in steps:  # warm-up
+            for _ in range(3):
+                s.train_step(batch)
+        runs = {0: [], 1: []}
+        for order in ((0, 1), (1, 0)) * 5:  # plain, dp, dp, plain, ...
+            for i in order:
+                runs[i].append(timed(lambda: steps[i].train_step(batch)))
+        step_ms = {i: statistics.median(v) * 1e3 for i, v in runs.items()}
+        z = torch.randn((32, 128, 512), device="cuda").to(torch.bfloat16)
+        z.requires_grad_()
+        pool, _ = dp.gather_pool(z, mesh)
+        g = torch.randn_like(pool)
+        grads = [p.grad for p in models[1].parameters()]
+        n_grad = sum(t.numel() for t in grads)
+        times = {
+            "gather forward": cuda_ms(lambda: dp.gather_pool(z, mesh)),
+            "gather backward": cuda_ms(lambda: torch.autograd.grad(
+                pool, z, g, retain_graph=True)),
+            "average of the gradients": cuda_ms(
+                lambda: dp.average(grads, mesh))}
+        print(f"dp (a) times on {card}: the tpu_fast step "
+              f"{step_ms[0]:.3f} ms, the one-rank dp_global_negatives step "
+              f"{step_ms[1]:.3f} ms (median of 10 each, in turns, CUDA "
+              f"sync): the DP layer at a world of one "
+              f"{step_ms[1] - step_ms[0]:+.3f} ms a step; alone, eager "
+              f"calls between CUDA events (median of 20; the host's enqueue "
+              f"of the process group's call bounds them): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+              + f" (pool {tuple(pool.shape)} bf16 of z (32, 128, 512); "
+              f"{n_grad} fp32 gradient entries in one buffer)", flush=True)
+        return {"step_ms": step_ms[0], "dp_step_ms": step_ms[1], **times}
+    finally:
+        multihost.shutdown()
+
+
+def dp_rank_main(argv) -> None:
+    """One of phase 23(b)'s ranks: `chip_smoke.py --dp-rank R --dp-port P
+    --dp-out DIR`. Joins a gloo group of DP_WORLD ranks on cuda:0, runs one
+    dp_global_negatives step of each DP path on its rows of the seeded
+    global batch, and saves its metrics, the averaged watched gradients,
+    its parameters and the kernels' launches to DIR."""
+    args = dict(zip(argv[::2], argv[1::2]))
+    rank, out = int(args["--dp-rank"]), args["--dp-out"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = multihost.initialize(f"127.0.0.1:{args['--dp-port']}", DP_WORLD,
+                                rank, device="cuda:0", backend="gloo",
+                                timeout=300)
+    try:
+        for path in DP_PATHS:
+            cfg = dp_config(path)
+            model = init_state(cfg, mesh.device)
+            steps = make_step_fns(cfg, model, mesh)
+            host = multihost.shard_batch(dp_batch(cfg), mesh)
+            local = torch.from_numpy(host).to(mesh.device)
+            for fn in COUNTED.values():
+                fn.launches = 0
+            metrics = steps.train_step(local)
+            torch.cuda.synchronize()
+            counts = {k: fn.launches for k, fn in COUNTED.items()}
+            params = dict(model.named_parameters())
+            grads = dp.average([params[k].grad for k in DP_WATCHED], mesh)
+            torch.save({"metrics": {k: v.cpu() for k, v in metrics.items()},
+                        "grads": {k: g.cpu() for k, g in
+                                  zip(DP_WATCHED, grads)},
+                        "params": {k: p.detach().cpu()
+                                   for k, p in params.items()},
+                        "counts": counts, "rows": tuple(host.shape),
+                        "shift": mesh.rank * host.shape[0]},
+                       os.path.join(out, f"{path}.rank{rank}.pt"))
+    finally:
+        multihost.shutdown()
+
+
+def run_ranks(cmds, timeout: float, env=None) -> list:
+    """Runs the commands together (with `env` added to the environment);
+    kills them all if one fails or the time runs out, and fails then.
+    Returns each one's output."""
+    logs = [tempfile.TemporaryFile("w+") for _ in cmds]
+    env = dict(os.environ, **(env or {}))
+    procs = [subprocess.Popen(c, stdout=log, stderr=subprocess.STDOUT,
+                              text=True, env=env)
+             for c, log in zip(cmds, logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+        check(p.returncode == 0, f"dp rank {i} exited {p.returncode}:\n"
+              f"{texts[-1][-6000:]}")
+    return texts
+
+
+def phase23b_two_ranks(card: str) -> dict:
+    """Two gloo ranks sharing the card against one process's step on the
+    concatenated batch, on each DP path (DP_TOL); returns the path kernels'
+    launches a rank."""
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        port = free_port()
+        run_ranks([[sys.executable, os.path.abspath(__file__), "--dp-rank",
+                    str(r), "--dp-port", str(port), "--dp-out", out]
+                   for r in range(DP_WORLD)], timeout=600)
+        wall = time.perf_counter() - t0
+        ranks = {path: [torch.load(os.path.join(out, f"{path}.rank{r}.pt"))
+                        for r in range(DP_WORLD)] for path in DP_PATHS}
+    print(f"dp (b): {DP_WORLD} gloo ranks on cuda:0, one step of each of "
+          f"{list(DP_PATHS)}, in {wall:.1f} s (start-up included; no "
+          f"speed: the ranks share one card)", flush=True)
+    dtype_of = {True: "bf16", False: "fp32"}
+    launches = {}
+    for path, (r0, r1) in ranks.items():
+        cfg = dp_config(path)
+        model = init_state(cfg, "cuda")
+        steps = make_step_fns(cfg, model)
+        m = steps.train_step(torch.from_numpy(dp_batch(cfg)).cuda())
+        params = dict(model.named_parameters())
+        mm = r0["metrics"]
+        errs = {"loss": abs(mm["loss"].item() - m["loss"].item())
+                / abs(m["loss"].item()),
+                "acc": (mm["acc"] - m["acc"].cpu()).abs().max().item(),
+                "grad_norm": abs(mm["grad_norm"].item()
+                                 - m["grad_norm"].item())
+                / m["grad_norm"].item()}
+        for k in DP_WATCHED:
+            want = params[k].grad.cpu()
+            errs[f"grad {k}"] = rel_err(r0["grads"][k], want)
+            errs[f"grad_of_max {k}"] = rel_to_max(r0["grads"][k], want)
+        same = [k for k in r0["params"]
+                if not torch.equal(r0["params"][k], r1["params"][k])]
+        drift = max((r0["params"][k] - p.detach().cpu()).abs().max().item()
+                    for k, p in params.items())
+        _, kernels = LOSS_PATHS[DP_PATHS[path][1]]
+        want_counts = {k: int(k in GRU_KERNELS + kernels) for k in COUNTED}
+        print(f"dp (b) {path} "
+              f"({dtype_of[cfg.model.dtype == 'bfloat16']}): ranks' rows "
+              f"{r0['rows']} and {r1['rows']}, "
+              f"shifts {r0['shift']} and {r1['shift']} in a pool of "
+              f"{DP_WORLD * r0['rows'][0]}; two ranks vs one process on the "
+              f"concatenated batch: loss {mm['loss'].item():.6f} vs "
+              f"{m['loss'].item():.6f}, grad_norm "
+              f"{mm['grad_norm'].item():.6f} vs {m['grad_norm'].item():.6f}; "
+              f"errors {errs} (tolerances {DP_TOL}); the ranks' parameters "
+              f"after the update bit-equal: {not same}; their largest "
+              f"distance from one process's {drift:.3e}; launches a rank "
+              f"{[r['counts'] for r in (r0, r1)]}", flush=True)
+        for k, e in errs.items():
+            check(math.isfinite(e) and e <= DP_TOL[k.split()[0]],
+                  f"dp (b) {path}: {k} error {e}")
+        check(not same, f"dp (b) {path}: ranks' parameters differ: {same}")
+        for r in (r0, r1):
+            check(r["counts"] == want_counts,
+                  f"dp (b) {path}: launches {r['counts']}")
+        launches.update({k: r0["counts"][k] for k in kernels})
+    return launches
+
+
+def phase23c_kernels(card: str, measured: dict) -> dict:
+    """The kernels at the DP step's per-rank shapes against their plain
+    versions (phases 5 and 8's routes and tolerances), then their times
+    beside tpu_fast's; returns {name: ms at the DP shape}."""
+    errs = dict.fromkeys(COUNTED, 0.0)
+    heads_checks(errs, [(DP_HEADS, torch.bfloat16)])
+    loss_checks(errs, [(DP_LOSS, torch.bfloat16)])
+    T, B, H = DP_GRU
+    check(gru_route(B, H, torch.bfloat16) == "resident",
+          f"gru {DP_GRU} takes {gru_route(B, H, torch.bfloat16)}")
+    with torch.inference_mode():
+        xp, wh, bh, h0 = gru_inputs(T, B, H, torch.bfloat16, seed=60)
+        g = torch.from_numpy(np.random.default_rng(61).standard_normal(
+            (T, B, H))).to("cuda", torch.bfloat16)
+        hs = gru_scan_reference(xp, wh, bh, h0)
+        got, again = (gru_scan_backward(xp, wh, bh, h0, hs, g)
+                      for _ in range(2))
+        want = gru_scan_backward_reference(xp, wh, bh, h0, hs, g)
+        torch.cuda.synchronize()
+        for name, a, a2, b in zip(("dxproj", "dwh", "dbh", "dh0"), got,
+                                  again, want):
+            tol = REL_TOL[torch.float32 if b.dtype == torch.float32
+                          else torch.bfloat16]
+            err = rel_err(a, b)
+            print(f"gru_scan_backward vs plain {DP_GRU} bf16 (resident "
+                  f"route) {name}: relative to max(1, max |plain|) "
+                  f"{err:.3e} (tol {tol:.0e}); two runs bit-identical "
+                  f"{torch.equal(a, a2)}", flush=True)
+            check(torch.equal(a, a2) and err <= tol,
+                  f"gru bwd {DP_GRU} {name}: {err}")
+        args = (xp, wh, bh, h0)
+        dp_ms = {"gru_scan": cuda_ms(lambda: gru_scan(*args)),
+                 "gru_scan_backward": cuda_ms(
+                     lambda: gru_scan_backward(*args, hs, g))}
+    for name, ms in dp_ms.items():
+        print(f"time {name} at the DP shape {DP_GRU} bf16 on {card}: "
+              f"{ms:.4f} ms (tpu_fast's {SLICE_SHAPE}: "
+              f"{measured[name]['ms']:.4f} ms)", flush=True)
+    for name, m in heads_times_ms(DP_HEADS).items():
+        dp_ms[name] = m["ms"]
+        print(f"time {name} at the DP shape {DP_HEADS[:5]} shift "
+              f"{DP_HEADS[5]} bf16 on {card}: {m['ms']:.4f} ms [SIMT "
+              f"{m['simt_ms']:.4f} ms], plain {m['plain_ms']:.4f} ms, "
+              f"bound {m['bound_ms']:.4f} ms by {m['bound_by']} "
+              f"(tpu_fast's {HEADS_SLICE[:5]}: {measured[name]['ms']:.4f} "
+              f"ms)", flush=True)
+    times = loss_times_ms(DP_LOSS, tuple(LOSS_KERNELS))
+    print_loss_times(card, DP_LOSS, times)
+    for name, m in times.items():
+        dp_ms[name] = m["ms"]
+        print(f"time {name} at the DP shape: {m['ms']:.4f} ms against "
+              f"{measured[name]['ms']:.4f} ms at tpu_fast's", flush=True)
+    return dp_ms
+
+
+def phase23d_cli(card: str) -> dict:
+    """dp_global_negatives through the training CLI on a one-rank NCCL
+    group: 10 steps (the kernels' launches counted), then 5 + 5 with a
+    resume, equal bit for bit (cuDNN deterministic in all three runs);
+    then --num-processes 2 on the one card must fail with NCCL's cause.
+    Returns the straight run's launches."""
+    with tempfile.TemporaryDirectory() as root, \
+            forced("deterministic", True, module=torch.backends.cudnn):
+        straight, resumed = (os.path.join(root, n) for n in ("a", "b"))
+
+        def dp_args():
+            return ["--coordinator", f"127.0.0.1:{free_port()}",
+                    "--num-processes", "1", "--process-id", "0",
+                    "--set", "train.log_every=1"]
+        counts = train_cli_run("dp_global_negatives", "dp_global_negatives",
+                               dp_args(), DP_CLI_STEPS,
+                               {k: 1 for k in GRU_KERNELS + HEADS_KERNELS},
+                               workdir=straight)
+        corpus = os.path.join(straight, "synthetic_corpus")
+        for steps, extra in ((5, []), (DP_CLI_STEPS, ["--resume"])):
+            rc = train_cli.main(["--config", "dp_global_negatives", "--data",
+                                 corpus, "--workdir", resumed, "--steps",
+                                 str(steps), *dp_args(), *extra])
+            check(rc == 0, f"dp cli leg of {steps} steps returned {rc}")
+
+        def losses(wd):
+            with open(os.path.join(wd, "metrics.jsonl")) as f:
+                return {r["step"]: r["loss"] for r in map(json.loads, f)
+                        if r["prefix"] == "train"}
+        a, b = losses(straight), losses(resumed)
+        ckpts = [CheckpointManager(os.path.join(w, "checkpoints"))
+                 .restore_latest() for w in (straight, resumed)]
+        differ = [k for k, v in ckpts[0]["model"].items()
+                  if not torch.equal(v, ckpts[1]["model"][k])]
+        print(f"dp (d): {DP_CLI_STEPS} CLI steps straight vs 5 + "
+              f"{DP_CLI_STEPS - 5} resumed (one-rank NCCL, cuDNN "
+              f"deterministic): losses {[a[k] for k in sorted(a)]} vs "
+              f"{[b[k] for k in sorted(b)]}; step {DP_CLI_STEPS} "
+              f"checkpoints' tensors that differ: {differ}", flush=True)
+        check(a == b and sorted(a) == list(range(1, DP_CLI_STEPS + 1)),
+              "the resumed DP run's losses differ from the straight run's")
+        check(not differ and ckpts[0]["meta"] == ckpts[1]["meta"],
+              f"the resumed DP run's checkpoint differs: {differ}")
+        proc = subprocess.run(
+            [sys.executable, "-m", "cpc_tpu_torch.train", "--config",
+             "dp_global_negatives", "--device", "cuda", "--steps", "1",
+             "--workdir", os.path.join(root, "c"), "--coordinator",
+             f"127.0.0.1:{free_port()}", "--num-processes", "2",
+             "--process-id", "0"],
+            capture_output=True, text=True, timeout=300)
+        said = proc.stderr.strip().splitlines()[-1:] or [""]
+        print(f"dp (d): --num-processes 2 on one card under --device cuda "
+              f"exits {proc.returncode}: {said[0]}", flush=True)
+        check(proc.returncode != 0
+              and "two ranks on one device" in proc.stderr,
+              f"two NCCL ranks on one card: rc {proc.returncode}, "
+              f"{proc.stderr[-2000:]}")
+    return counts
+
+
+
+# ------------------------------------------------ data parallelism, N cards
+DP_CARDS_STEPS = {"fp32": 10, "bf16": 30}
+FP32_SETS = ["--set", "model.dtype=float32",
+             "--set", "model.loss.pallas_bf16=false"]
+# fp32, N NCCL ranks against one process: the same global batches through
+# kernels at other batch sizes (16 rows against 64), so the sums differ in
+# order, and the updates carry that on. Held over the first DP_CARDS_HELD
+# steps; measured on 4 H100 80GB HBM3 at 700 W: 7.9e-7 to 1.8e-6 there,
+# then growing as the loss falls, 2.0e-5 by step 8 and 6.0e-4 by step 19.
+DP_CARDS_TOL, DP_CARDS_HELD = 1e-5, 5
+
+
+def dp_collectives_main(argv) -> None:
+    """One rank of `--dp-cards`' look at the DP layer alone:
+    `chip_smoke.py --dp-collectives-rank R --dp-port P --dp-world N
+    [--dp-device cpu]`. On a world of N (NCCL on the cards; gloo with
+    `--dp-device cpu`, a rehearsal) at dp_global_negatives' sizes, the
+    median ms (host clock, a sync after each call) of the gather forward
+    and backward of a rank's z (64/N, 128, 512) bf16, the gradients'
+    average (7.4 M fp32), the host group's any_true, and the data-parallel
+    step on the rank's 64/N rows, device-resident; then 20 steps in a row
+    with one sync at the end, as the trainer runs them: alone, with the
+    host group's any_true after each, and with each batch from a Batcher
+    over `--dp-corpus` too (the trainer's loop); rank 0 prints them as one
+    JSON line."""
+    args = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(args["--dp-collectives-rank"]), int(args["--dp-world"])
+    mesh = multihost.initialize(f"127.0.0.1:{args['--dp-port']}", world,
+                                rank, device=args.get("--dp-device", "cuda"),
+                                timeout=300)
+    try:
+        dev = mesh.device
+        cfg = presets.dp_global_negatives()
+        rows = cfg.data.batch_size // world
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def ms(fn, reps=10, warmup=3):
+            for _ in range(warmup):
+                fn()
+            times = []
+            for _ in range(reps):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+        gen = torch.Generator(device=dev).manual_seed(rank)
+        z = torch.randn((rows, 128, 512), device=dev, generator=gen).to(
+            torch.bfloat16).requires_grad_()
+        pool, _ = dp.gather_pool(z, mesh)
+        g = torch.randn(pool.shape, device=dev, generator=gen).to(
+            torch.bfloat16)
+        model = init_state(cfg, dev)
+        grads = [torch.randn(p.shape, device=dev, generator=gen)
+                 for p in model.parameters()]
+        steps = make_step_fns(cfg, model, mesh)
+        batch = torch.from_numpy(multihost.shard_batch(dp_batch(cfg), mesh))
+        batch = batch.to(dev)
+        out = {"world": world, "rows": rows, "device": str(dev),
+               "gather_forward_ms": ms(lambda: dp.gather_pool(z, mesh)),
+               "gather_backward_ms": ms(lambda: torch.autograd.grad(
+                   pool, z, g, retain_graph=True)),
+               "average_ms": ms(lambda: dp.average(grads, mesh)),
+               "any_true_ms": ms(lambda: multihost.any_true(False, mesh),
+                                 reps=50),
+               "step_ms": ms(lambda: steps.train_step(batch))}
+        ds = SnippetDataset(args["--dp-corpus"], cfg.data.snippet_samples)
+        feed = iter(Batcher(ds, cfg.data.batch_size, seed=0))
+
+        def loop(agree: bool, fed: bool, n: int = 20) -> float:
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                b = batch
+                if fed:
+                    b = to_device(multihost.shard_batch(next(feed)[2], mesh),
+                                  dev)
+                steps.train_step(b)
+                if agree:
+                    multihost.any_true(False, mesh)
+            sync()
+            return (time.perf_counter() - t0) * 1e3 / n
+        for _ in range(10):  # one epoch of the corpus into its cache
+            next(feed)
+        out.update(run_ms=loop(False, False),
+                   run_any_true_ms=loop(True, False),
+                   run_batcher_ms=loop(True, True))
+        feed.close()
+        if rank == 0:
+            print(json.dumps(out), flush=True)
+    finally:
+        multihost.shutdown()
+
+
+def dp_cards_main(n: int) -> None:
+    """`chip_smoke.py --dp-cards N`: data parallelism across N cards under
+    NCCL, what one card cannot run. dp_global_negatives through the
+    training CLI on N processes (one a card, `--coordinator`) against one
+    process on the global batch of 64: in fp32 the losses of the first
+    DP_CARDS_HELD steps within DP_CARDS_TOL (relative), the rest printed;
+    in bf16 the trainer's audio-s/s of both (its log windows of 10 steps,
+    the first holding the warm-up)."""
+    check(torch.cuda.is_available() and torch.cuda.device_count() >= n,
+          f"--dp-cards {n} needs {n} CUDA GPUs")
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    print(f"gpus: {cards.strip().splitlines()}", flush=True)
+    _build.load_library()  # once, before the ranks start
+    # (label, steps, processes, environment): fp32 for the trajectory,
+    # bf16 for the rate, and bf16 on N cards with a thread a core in every
+    # process (OMP_NUM_THREADS set, so `multihost.share_host_threads`
+    # leaves it), against the default of one a process
+    every_core = str(os.cpu_count())
+    plan = [("fp32", DP_CARDS_STEPS["fp32"], 1, {}),
+            ("fp32", DP_CARDS_STEPS["fp32"], n, {}),
+            ("bf16", DP_CARDS_STEPS["bf16"], 1, {}),
+            ("bf16", DP_CARDS_STEPS["bf16"], n, {}),
+            (f"bf16 OMP_NUM_THREADS={every_core}", DP_CARDS_STEPS["bf16"], n,
+             {"OMP_NUM_THREADS": every_core})]
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        corpus = os.path.join(root, "corpus")
+        generate_synthetic_corpus(corpus, num_speakers=64,
+                                  files_per_speaker=3, seconds_per_file=4.0,
+                                  seed=0)
+        for i, (label, steps, procs, env) in enumerate(plan):
+            wd = os.path.join(root, str(i))
+            cmd = [sys.executable, "-m", "cpc_tpu_torch.train",
+                   "--config", "dp_global_negatives", "--data", corpus,
+                   "--workdir", wd, "--steps", str(steps), "--set",
+                   f"train.log_every={1 if label == 'fp32' else 10}",
+                   *(FP32_SETS if label == "fp32" else [])]
+            port = free_port()
+            cmds = [cmd] if procs == 1 else [
+                cmd + ["--coordinator", f"127.0.0.1:{port}",
+                       "--num-processes", str(procs), "--process-id",
+                       str(r)] for r in range(procs)]
+            t0 = time.perf_counter()
+            run_ranks(cmds, timeout=900, env=env)
+            with open(os.path.join(wd, "metrics.jsonl")) as f:
+                runs[label, procs] = [json.loads(line) for line in f]
+            print(f"dp cards: {label}, {procs} process(es), {steps} steps "
+                  f"in {time.perf_counter() - t0:.1f} s (start-up "
+                  f"included)", flush=True)
+            if label.startswith("bf16"):
+                windows = [(r["step"], round(r["audio_sec_per_sec"], 1),
+                            round(r["steps_per_sec"], 2), round(r["loss"], 6))
+                           for r in runs[label, procs]]
+                print(f"dp cards: {label} dp_global_negatives on {procs} "
+                      f"card(s) ({cards.splitlines()[0]}), the trainer's "
+                      f"windows of 10 steps (step, audio-s/s, steps/s, "
+                      f"loss): {windows}", flush=True)
+        # the DP layer alone, on N cards and on one, with NCCL's own
+        # account of the transport it chose
+        for world in (n, 1):
+            port = free_port()
+            texts = run_ranks(
+                [[sys.executable, os.path.abspath(__file__),
+                  "--dp-collectives-rank", str(r), "--dp-port", str(port),
+                  "--dp-world", str(world), "--dp-corpus", corpus]
+                 for r in range(world)],
+                timeout=600, env={"NCCL_DEBUG": "INFO"})
+            said = [line for line in texts[0].splitlines()
+                    if " via " in line or "NCCL version" in line
+                    or "NET/" in line][:4]
+            result = [line for line in texts[0].splitlines()
+                      if line.startswith("{")]
+            print(f"dp cards: the DP layer alone on {world} card(s), rank 0 "
+                  f"(ms, host clock): {result[-1] if result else None}; "
+                  f"NCCL says: {said}", flush=True)
+    one, many = runs["fp32", 1], runs["fp32", n]
+    errs = [abs(b["loss"] - a["loss"]) / abs(a["loss"])
+            for a, b in zip(one, many)]
+    check(len(one) == len(many) == DP_CARDS_STEPS["fp32"], "fp32 records")
+    held = max(errs[:DP_CARDS_HELD])
+    print(f"dp cards: fp32, {n} NCCL ranks x {64 // n} rows vs one process "
+          f"on 64: losses {[r['loss'] for r in many]} vs "
+          f"{[r['loss'] for r in one]}; relative errors by step "
+          f"{[f'{e:.1e}' for e in errs]}, the first {DP_CARDS_HELD} held: "
+          f"{held:.3e} (tol {DP_CARDS_TOL:.0e})", flush=True)
+    check(held <= DP_CARDS_TOL, f"fp32 trajectory error {held}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     # 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false; "
@@ -2497,6 +3112,16 @@ def main() -> None:
         phase21_streams(card)
         phase22_serve(card, workdir)
 
+    # 23. data parallelism: a one-rank NCCL step against the step, two gloo
+    # ranks on the card against one process, the kernels at the per-rank
+    # shapes, the CLI with a resume
+    phase23a_one_rank(card)
+    dp_launches = phase23b_two_ranks(card)
+    dp_ms = phase23c_kernels(card, measured)
+    cli_counts = phase23d_cli(card)
+    dp_launches.update({k: cli_counts[k] for k in GRU_KERNELS
+                        + HEADS_KERNELS})
+
     sources = {
         "gru_scan": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:57"),
         "gru_scan_backward": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:82"),
@@ -2528,7 +3153,8 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"cpc_tpu_torch/csrc/{src}", "replaces": tpu,
-        "launches": counts[name], **{k: measured[name][k] for k in keys}}
+        "launches": counts[name], **{k: measured[name][k] for k in keys},
+        "dp_launches": dp_launches.get(name, 0), "dp_ms": dp_ms.get(name)}
         for name, (src, tpu) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2536,4 +3162,11 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--dp-rank" in sys.argv:
+        dp_rank_main(sys.argv[1:])
+    elif "--dp-collectives-rank" in sys.argv:
+        dp_collectives_main(sys.argv[1:])
+    elif "--dp-cards" in sys.argv:
+        dp_cards_main(int(sys.argv[sys.argv.index("--dp-cards") + 1]))
+    else:
+        main()

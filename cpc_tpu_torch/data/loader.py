@@ -7,8 +7,12 @@ runs the previous step, in an order fixed by (seed, epoch): numpy's
 (tests/test_torch_port_data.py). Its state is (seed, epoch, pos), which a
 checkpoint stores for exact resume. `to_device` copies the int16 batch
 through a pinned host buffer with a non-blocking copy; `device_prepare`
-dequantizes and normalizes on the device. The device-resident corpus
-(`data.device_corpus`, `yield_indices`) waits (ROADMAP.md §A8).
+dequantizes and normalizes on the device. Under data parallelism every rank
+runs the same Batcher, so every rank assembles the same global batch and
+keeps the same state; each takes its rows (`parallel.multihost.
+shard_batch`) before `to_device`, so that it copies only its own share. The
+device-resident corpus (`data.device_corpus`, `yield_indices`) waits
+(ROADMAP.md A8).
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ c (B, T, d_ar), strictly causal.
     fp32 model under either, their own forward and the pair of dQ and
     dK/dV kernels (`ops.attention_cuda.attention_route` names them). No
     dropout (the kernels have none).
-  * 'ring' | 'zigzag' (context parallelism) are not ported: ROADMAP.md §A13.
+  * 'ring' | 'zigzag' (context parallelism) are not ported: ROADMAP.md A10.
 
 Every impl has the same parameters (`SelfAttention`'s query, key, value and
 out projections), so one `state_dict` loads under each. Where PyTorch's
@@ -249,7 +249,7 @@ class CausalTransformer(nn.Module):
         if cfg.attn_impl in ("ring", "zigzag"):
             raise NotImplementedError(
                 f"ar.attn_impl={cfg.attn_impl!r} (context parallelism) is "
-                f"not ported yet: ROADMAP.md §A13")
+                f"not ported yet: ROADMAP.md A10")
         if cfg.attn_impl != "xla" and cfg.dropout > 0:
             raise ValueError(
                 f"ar.attn_impl={cfg.attn_impl!r} does not implement "

@@ -12,10 +12,12 @@ Port of `cpc_tpu/ops/infonce.py::infonce_loss_and_metrics` and
   * scores, log-softmax and argmax in fp32; argmax ties go to the first
     maximum, as jnp.argmax (torch.argmax documents no tie rule).
 
-In place of the JAX package's `axis_name`, the candidate pool is an
-argument: `pool` (C, T, D), default z, and `shift`, the row of the pool
-where this batch's positives start. A cross-replica pool is then z
-all-gathered over the replicas and shift = rank * B.
+The candidate pool is `pool` (C, T, D), default z, with `shift`, the row
+of the pool where this batch's positives start. In place of the JAX
+package's `axis_name`, a `mesh` (`parallel.mesh.ProcessMesh`) gathers the
+pool over the ranks where JAX gathers it (`parallel.dp.gather_pool`): every
+rank's z, C = size * B, shift = rank * B; in fp32 on the plain path and in
+the wire dtype on the kernels' (the dtypes JAX gathers in).
 
 `use_pallas` asks for a kernel on materialized preds, as in the JAX
 package: preds[:, :Tp] and the pool are cast to the wire dtype (bf16 with
@@ -24,7 +26,7 @@ runs the same-step kernels or hands over to the all-steps kernels of
 `ops.infonce_allsteps_cuda`. A CPU tensor runs their plain versions, a CUDA
 tensor the kernels, which run or raise. The fused heads + InfoNCE kernel
 takes c and the heads' weight, not preds, and is `ops.infonce_fused`. The
-JAX package's `ring=True` is not ported (ROADMAP.md §A13).
+JAX package's `ring=True` is not ported (ROADMAP.md A10).
 
 `WIRE_DTYPES`, `check_labels`, `on_device` and `tensor_core_route` are
 shared by the three kernel modules.
@@ -35,6 +37,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from cpc_tpu_torch.parallel.dp import gather_pool
 
 WIRE_DTYPES = (torch.float32, torch.bfloat16)  # what the kernels take
 
@@ -106,6 +110,7 @@ def infonce_loss_and_metrics(
     negatives: str = "same_step",
     pool: Optional[torch.Tensor] = None,
     shift: int = 0,
+    mesh=None,
     use_pallas: bool = False,
     pallas_bf16: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -113,21 +118,30 @@ def infonce_loss_and_metrics(
 
     preds (B, T, K, D) predictions W_k c_t; z (B, T, D) encoder latents;
     pool (C, T, D) the candidates, default z; shift the pool row of this
-    batch's first positive; use_pallas routes scoring, softmax and argmax
-    through the kernels, on a bf16 wire with pallas_bf16. Returns
-    (loss, {"loss", "acc" (K,), "acc_mean"})."""
+    batch's first positive; mesh, in place of pool and shift, gathers every
+    rank's z into the pool (cross-replica negatives); use_pallas routes
+    scoring, softmax and argmax through the kernels, on a bf16 wire with
+    pallas_bf16. Returns (loss, {"loss", "acc" (K,), "acc_mean"})."""
     B, T, K, D = preds.shape
     Tp = T - K
     if negatives not in ("same_step", "all_steps"):
         raise ValueError(f"unknown negatives mode {negatives!r}")
+    if mesh is not None and (pool is not None or shift):
+        raise ValueError("a mesh gathers the pool: pass pool and shift, "
+                         "or a mesh, not both")
     pool = z if pool is None else pool
     if use_pallas:
         from cpc_tpu_torch.ops.infonce_cuda import fused_infonce
         kdtype = torch.bfloat16 if pallas_bf16 else torch.float32
-        return fused_infonce(preds[:, :Tp].to(kdtype), pool.to(kdtype),
+        pool = pool.to(kdtype)
+        if mesh is not None:
+            pool, shift = gather_pool(pool, mesh)
+        return fused_infonce(preds[:, :Tp].to(kdtype), pool,
                              negatives=negatives, shift=shift)
     preds_v = preds[:, :Tp].float()
     pool = pool.float()
+    if mesh is not None:
+        pool, shift = gather_pool(pool, mesh)
     dev = preds.device
     if negatives == "same_step":
         tgt = stacked_targets(pool, K)  # (C, Tp, K, D)

@@ -45,6 +45,7 @@ from cpc_tpu_torch.ops._build import check_launch, load_library
 from cpc_tpu_torch.ops.infonce import (WIRE_DTYPES, check_labels,
                                        first_argmax, on_device,
                                        tensor_core_route)
+from cpc_tpu_torch.parallel.dp import gather_pool
 
 
 def validity_mask_tm(T: int, K: int, B: int, Tp: int,
@@ -299,6 +300,7 @@ def fused_heads_infonce(
     c_time_major: bool = False,
     pool: Optional[torch.Tensor] = None,
     shift: int = 0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss and per-k accuracy straight from (c, z, W): the same as
     `infonce_loss_and_metrics(heads(c), z, negatives='same_step')`, with
@@ -307,7 +309,9 @@ def fused_heads_infonce(
     c (B, T, A), or (T, B, A) with c_time_major; z (B, T, D); W (A, K*D),
     the JAX package's layout of the heads' weight. pool (C, T, D), default
     z, is the candidate pool, whose rows shift..shift+B-1 are this batch's
-    positives (cross-replica pools, once the port has them)."""
+    positives. A `mesh` (`parallel.mesh.ProcessMesh`), in place of pool and
+    shift, gathers every rank's z into the pool in the compute dtype, as
+    the JAX package gathers it: C = size * B, shift = rank * B."""
     K = num_steps
     if c_time_major:
         T, B, _ = c.shape
@@ -316,10 +320,15 @@ def fused_heads_infonce(
     if T - K <= 0:
         raise ValueError(
             f"sequence of {T} latents is too short for K={K} offsets")
+    if mesh is not None and (pool is not None or shift):
+        raise ValueError("a mesh gathers the pool: pass pool and shift, "
+                         "or a mesh, not both")
     pool = z if pool is None else pool
-    check_labels(B, pool.shape[0], int(shift))
     if compute_dtype is not None:
         c, pool, W = (t.to(compute_dtype) for t in (c, pool, W))
+    if mesh is not None:
+        pool, shift = gather_pool(pool, mesh)
+    check_labels(B, pool.shape[0], int(shift))
     c_tm = c if c_time_major else c.transpose(0, 1)
     z_tm = pool.transpose(0, 1).contiguous()  # (T, C, D)
     fn = _HeadsNllPlain if c.device.type == "cpu" else _HeadsNllCuda

@@ -1,0 +1,158 @@
+"""Multi-process runtime: the process group's bring-up and what the host
+side of a data-parallel run needs.
+
+Port of `cpc_tpu/parallel/multihost.py`. Every process runs the same step
+on its own card (`parallel.dp`); this module gives the host side:
+
+  * `initialize` forms the torch.distributed group and returns this
+    process's `ProcessMesh`: a `tcp://` rendezvous at a coordinator's
+    address, else `env://` from a launcher's MASTER_ADDR, MASTER_PORT,
+    RANK and WORLD_SIZE (and LOCAL_RANK, LOCAL_WORLD_SIZE where torchrun
+    sets them). NCCL on CUDA and gloo on the CPU unless `backend` names
+    one; a gloo group beside NCCL carries the host's flags and barriers.
+    Every wait is bounded by `timeout`, so a rank that dies fails the
+    others instead of hanging them. Ranks that share a host take one
+    intra-op thread each (`share_host_threads`).
+  * `replicate` broadcasts rank 0's tensors (model, optimizer state and
+    resume position) after init or restore.
+  * `shard_batch` takes this rank's rows of the global host batch: every
+    rank assembles the same seeded batch and copies only its share to its
+    card.
+  * `host_local` copies tensors to the host for rank 0's checkpoint.
+  * `active`, `is_main`, `barrier`, `any_true` (a MAX all_reduce of a host
+    flag: the trainer's agreement on preemption, so that every rank saves
+    at the same step) and `shutdown`.
+
+Checkpoints, metrics and the resolved config are rank 0's to write, into a
+workdir every rank can read (`train.trainer`). One host only: under
+`--coordinator` a process's rank is its rank on the host; runs across hosts
+go through a launcher's `env://` and are untested (ROADMAP.md A10).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from cpc_tpu_torch.parallel.mesh import (ProcessMesh, check_one_rank_a_device,
+                                         rank_device)
+
+DEFAULT_TIMEOUT_S = 300.0
+
+
+def initialize(coordinator_address: Optional[str] = None,
+               num_processes: Optional[int] = None,
+               process_id: Optional[int] = None, *, device,
+               backend: Optional[str] = None,
+               timeout: float = DEFAULT_TIMEOUT_S) -> ProcessMesh:
+    """Joins this process to the group and returns its mesh. With
+    `coordinator_address` ("host:port" of rank 0) the world is
+    `num_processes` processes on this host and this one is `process_id`;
+    without it the launcher's environment says so. `device` is 'cuda' (the
+    card of this process's local rank), 'cuda:i' (card i, gloo only) or
+    'cpu'."""
+    device = torch.device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if coordinator_address is not None:
+        if num_processes is None or process_id is None:
+            raise ValueError("a coordinator needs num_processes and "
+                             "process_id")
+        init_method = f"tcp://{coordinator_address}"
+        world, rank = num_processes, process_id
+        local_rank, local_world = rank, world
+    else:
+        init_method = "env://"
+        world = num_processes if num_processes is not None \
+            else int(os.environ["WORLD_SIZE"])
+        rank = process_id if process_id is not None \
+            else int(os.environ["RANK"])
+        local_rank = int(os.environ.get("LOCAL_RANK", rank))
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    n_devices = torch.cuda.device_count() if device.type == "cuda" else 0
+    check_one_rank_a_device(backend, device, local_world, n_devices)
+    share_host_threads(local_world)
+    dev = rank_device(device, local_rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    wait = datetime.timedelta(seconds=timeout)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank, timeout=wait)
+    host_group = None
+    if backend != "gloo":
+        host_group = dist.new_group(backend="gloo", timeout=wait)
+    return ProcessMesh(rank=rank, size=world, device=dev,
+                       host_group=host_group)
+
+
+def share_host_threads(local_world: int) -> None:
+    """Several ranks on one host: one intra-op thread a process, as torchrun
+    sets it, unless OMP_NUM_THREADS says otherwise. Four processes with a
+    thread a core each ran the trainer on four H100s 3.1-3.3x slower than
+    one process on one card (PERF.md)."""
+    if local_world > 1 and "OMP_NUM_THREADS" not in os.environ:
+        torch.set_num_threads(1)
+
+
+def shutdown() -> None:
+    """Leaves the group, if this process is in one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def active(mesh: Optional[ProcessMesh]) -> bool:
+    """True when the run spans more than one process."""
+    return mesh is not None and mesh.size > 1
+
+
+def is_main(mesh: Optional[ProcessMesh]) -> bool:
+    """True on rank 0, and in a run without a mesh."""
+    return mesh is None or mesh.rank == 0
+
+
+def barrier(mesh: Optional[ProcessMesh]) -> None:
+    """Every rank waits here for the others (writers before readers)."""
+    if mesh is not None:
+        dist.barrier(group=mesh.host_group)
+
+
+def any_true(flag: bool, mesh: ProcessMesh) -> bool:
+    """OR of a host flag over the ranks. Collective: every rank calls it at
+    the same point."""
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.host_group)
+    return bool(t.item())
+
+
+def replicate(tensors: Iterable[torch.Tensor], mesh: ProcessMesh) -> None:
+    """Overwrites each tensor, in place, with rank 0's: host tensors over
+    the host group, device tensors over the step's group."""
+    with torch.no_grad():
+        for t in tensors:
+            group = mesh.host_group if t.device.type == "cpu" else mesh.group
+            dist.broadcast(t, src=0, group=group)
+
+
+def shard_batch(host_batch: np.ndarray,
+                mesh: Optional[ProcessMesh]) -> np.ndarray:
+    """This rank's rows of the global host batch (all of it without a
+    mesh)."""
+    if mesh is None:
+        return host_batch
+    return np.ascontiguousarray(host_batch[mesh.rows(len(host_batch))])
+
+
+def host_local(tree):
+    """Tensors of a nested dict, copied to the host; other leaves as
+    they are."""
+    if isinstance(tree, dict):
+        return {k: host_local(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree

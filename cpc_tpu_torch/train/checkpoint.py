@@ -6,7 +6,9 @@ payload as one file per step, `<dir>/step_<step>.pt`, written to a
 temporary name and renamed, so a reader sees all of a file or none. The
 newest `max_to_keep` files are kept, as orbax's `max_to_keep`. Saving is
 synchronous; resume is exact (the batcher continues at the next batch of the
-right epoch, and the optimizer state carries over bit for bit).
+right epoch, and the optimizer state carries over bit for bit). Only a
+save writes: under data parallelism rank 0 saves into the shared workdir
+and every rank restores from it (`train.trainer`).
 """
 
 from __future__ import annotations
@@ -24,10 +26,11 @@ class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
 
     def steps(self) -> List[int]:
         """Steps of the checkpoints on disk, ascending."""
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for m in map(
             _NAME.match, os.listdir(self.directory)) if m)
 
@@ -42,6 +45,7 @@ class CheckpointManager:
             "meta": {"step": int(step),
                      "batcher": {k: int(v) for k, v in batcher_state.items()}},
         }
+        os.makedirs(self.directory, exist_ok=True)
         tmp = self._path(step) + f".{os.getpid()}.tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self._path(step))

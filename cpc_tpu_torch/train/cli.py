@@ -15,9 +15,21 @@ model.encoder.scalogram_scale=mel|log|cqt`), for music audio best on
 overrides last.
 `--data synthetic` (or `synthetic-music`) writes a seeded corpus under the
 workdir on first use, as the JAX CLI does. `--device` defaults to cuda and
-raises where there is no GPU. Not offered yet (ROADMAP.md A7, A8): --packed,
---augment, --device-corpus, --supervise, --distributed, --profile and
---nan-debug.
+raises where there is no GPU.
+
+Data parallelism (`dp_global_negatives`, or any preset): one process a
+card, each given the same command and its rank, either
+
+    python -m cpc_tpu_torch.train --config dp_global_negatives \
+        --coordinator HOST:PORT --num-processes N --process-id i ...
+
+or `--distributed` under a launcher that sets MASTER_ADDR, MASTER_PORT,
+RANK and WORLD_SIZE (torchrun). Each rank trains on its rows of the global
+`--batch-size`; NCCL on cuda, gloo with `--device cpu` (a rehearsal on CPU
+processes). The workdir is shared: rank 0 alone writes it (the synthetic
+corpus, then a barrier; config, metrics, checkpoints), every rank reads it.
+Not offered yet (ROADMAP.md A7, A8): --packed, --augment, --device-corpus,
+--supervise, --profile and --nan-debug.
 """
 
 from __future__ import annotations
@@ -32,13 +44,14 @@ import torch
 from cpc_tpu_torch.config import apply_overrides, from_dict, presets
 from cpc_tpu_torch.data.dataset import SnippetDataset
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
+from cpc_tpu_torch.parallel import multihost
 from cpc_tpu_torch.train.trainer import Trainer
 
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cpc_tpu_torch.train",
-        description="CPC audio pretraining on one GPU (PyTorch port)",
+        description="CPC audio pretraining on GPUs (PyTorch port)",
         allow_abbrev=False)
     p.add_argument("--config", default=None,
                    help="preset name (baseline, tpu_fast, ...). Default: "
@@ -72,8 +85,32 @@ def build_argparser() -> argparse.ArgumentParser:
                         "--set train.learning_rate=3e-4; applied last; "
                         "repeatable")
     p.add_argument("--device", default="cuda",
-                   help="torch device to train on (default: cuda)")
+                   help="torch device to train on (default: cuda; under "
+                        "data parallelism each rank takes cuda:<its rank>)")
+    p.add_argument("--distributed", action="store_true",
+                   help="one process of a data-parallel run, its rank and "
+                        "world from the launcher's environment (MASTER_ADDR, "
+                        "MASTER_PORT, RANK, WORLD_SIZE); launch the same "
+                        "command once a card. The workdir must be shared")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rank 0's address for the rendezvous (implies "
+                        "--distributed); requires --num-processes and "
+                        "--process-id")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
+
+
+def check_distributed_args(args) -> None:
+    """The data-parallel flags' checks, as the JAX CLI makes them."""
+    if args.coordinator is not None and (args.num_processes is None
+                                         or args.process_id is None):
+        raise SystemExit("--coordinator requires --num-processes and "
+                         "--process-id")
+    if not (args.distributed or args.coordinator is not None) and (
+            args.num_processes is not None or args.process_id is not None):
+        raise SystemExit("--num-processes and --process-id need "
+                         "--coordinator or --distributed")
 
 
 def resolve_config(args):
@@ -101,20 +138,36 @@ def resolve_config(args):
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    check_distributed_args(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device here")
     cfg = resolve_config(args)
+    mesh = None
+    if args.distributed or args.coordinator is not None:
+        mesh = multihost.initialize(args.coordinator, args.num_processes,
+                                    args.process_id, device=device)
+        device = mesh.device
+    try:
+        return _train(args, cfg, device, mesh)
+    finally:
+        if mesh is not None:
+            multihost.shutdown()
 
+
+def _train(args, cfg, device, mesh) -> int:
+    main_rank = multihost.is_main(mesh)
     if args.data in ("synthetic", "synthetic-music"):
         corpus = os.path.join(args.workdir, "synthetic_corpus")
-        if not os.path.isdir(corpus):
+        # rank 0 alone writes the shared workdir; the others wait for it
+        if main_rank and not os.path.isdir(corpus):
             generate_synthetic_corpus(
                 corpus, style="music" if args.data.endswith("music")
                 else "speech",
                 num_speakers=max(8, cfg.data.batch_size),
                 files_per_speaker=3, seconds_per_file=4.0,
                 seed=cfg.train.seed)
+        multihost.barrier(mesh)
     else:
         corpus = args.data
     val_corpus = args.val_data or corpus
@@ -125,14 +178,17 @@ def main(argv=None) -> int:
                             d.sample_rate)
 
     trainer = Trainer(cfg, train_ds, val_ds, workdir=args.workdir,
-                      device=device)
+                      device=device, mesh=mesh)
     try:
         if args.resume:
             resumed = trainer.maybe_resume()
-            print("resume: " + (f"restored step {trainer.step}" if resumed
-                                else "no checkpoint found"))
-        print(f"config={cfg.name} device={device} "
-              f"batch={cfg.data.batch_size} steps={cfg.train.num_steps}")
+            if main_rank:
+                print("resume: " + (f"restored step {trainer.step}"
+                                    if resumed else "no checkpoint found"))
+        if main_rank:
+            print(f"config={cfg.name} device={device} "
+                  f"processes={1 if mesh is None else mesh.size} "
+                  f"batch={cfg.data.batch_size} steps={cfg.train.num_steps}")
         trainer.train()
     finally:
         trainer.close()

@@ -1,8 +1,9 @@
 """Metric logging: JSON lines to stdout and `<workdir>/metrics.jsonl`.
 
 Port of `cpc_tpu/train/metrics.py::MetricWriter` without its TensorBoard
-output, which waits (ROADMAP.md §A9). One record per call: step, wall time,
-prefix ("train" | "val") and the metrics, arrays as lists.
+output, which waits (ROADMAP.md A7). One record per call: step, wall time,
+prefix ("train" | "val") and the metrics, arrays as lists. Under data
+parallelism only rank 0 has a writer with a workdir and an echo.
 """
 
 from __future__ import annotations

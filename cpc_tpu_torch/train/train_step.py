@@ -1,4 +1,4 @@
-"""The training and evaluation step, on one device.
+"""The training and evaluation step, on one device or data-parallel.
 
 Port of `cpc_tpu/train/train_step.py`: int16 dequantization and
 normalization (`data.loader.device_prepare`), encoder, gar (GRU or causal
@@ -21,17 +21,25 @@ numerics (tests/test_torch_port_optim.py holds it against optax):
 Transformer dropout (`ar.dropout > 0`) draws from a `torch.Generator` made
 anew for every microbatch of every step and seeded from `train.seed` and
 the optimizer's step count (`dropout_generator`), as the JAX trainer folds
-the step into its key. The count is part of the checkpoint, so a resumed
-run draws what the straight run draws. Evaluation never drops.
+the step into its key, and from the rank, as the JAX step folds in
+`axis_index`. The count is part of the checkpoint, so a resumed run draws
+what the straight run draws. Evaluation never drops.
 
-Single device only: a mesh, data or context parallelism, `device_corpus` and
-`augment` raise, naming their ROADMAP.md items.
+With a `mesh` (`parallel.mesh.ProcessMesh`) the step is data-parallel, as
+`cpc_tpu/parallel/dp.py` has it: each rank steps on its rows of the global
+batch, gathers the latents of every rank into its candidate pool when
+`loss.cross_replica` (each microbatch its own gathered pool), and averages
+gradients and metrics over the ranks before grad_norm and the update, so
+the update is the single-device step on the global batch. A mesh of one
+rank runs the same collectives. Context and tensor parallelism,
+`loss.ring`, `device_corpus` and `augment` raise, naming their ROADMAP.md
+items (`check_supported`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, NamedTuple
+from typing import Callable, Dict, Mapping, NamedTuple, Tuple
 
 import torch
 
@@ -40,6 +48,8 @@ from cpc_tpu_torch.data.loader import device_prepare
 from cpc_tpu_torch.models.cpc import CPCModel
 from cpc_tpu_torch.ops.infonce import infonce_loss_and_metrics
 from cpc_tpu_torch.ops.infonce_fused import fused_heads_infonce
+from cpc_tpu_torch.parallel.dp import average, dp_eval_step, dp_train_step
+from cpc_tpu_torch.parallel.mesh import mesh_size
 
 
 class StepFns(NamedTuple):
@@ -126,30 +136,46 @@ def make_optimizer(cfg: CPCConfig, model: torch.nn.Module) -> Optimizer:
     return Optimizer(dict(model.named_parameters()), cfg.train)
 
 
-def resolve_fuse_heads(cfg: CPCConfig) -> bool:
+def resolve_fuse_heads(cfg: CPCConfig, mesh=None) -> bool:
     """The loss-path chooser. The CUDA kernels sweep the candidate pool in
-    column tiles, so nothing bounds C, and the JAX package's v5e envelope
-    (C <= 128, a Mosaic VMEM fact) does not carry over: the fused path runs
-    whenever it is asked for."""
+    column tiles, so nothing bounds C, the gathered pool of a mesh
+    included, and the JAX package's v5e envelope (C <= 128, a Mosaic VMEM
+    fact) does not carry over: the fused path runs whenever it is asked
+    for. `mesh` is taken as the JAX chooser takes it."""
     loss = cfg.model.loss
     return loss.use_pallas and loss.fuse_heads and \
         loss.negatives == "same_step"
 
 
-def check_supported(cfg: CPCConfig) -> None:
-    """Raises on what the port's single-device trainer does not run yet."""
-    t, d = cfg.train, cfg.data
-    if t.parallel != "dp" or tuple(t.mesh_shape) not in ((-1,), (1,)):
+def check_supported(cfg: CPCConfig, mesh=None) -> None:
+    """Raises on what the port's trainer does not run yet, and on a mesh
+    or batch that does not fit the world of `mesh` (one process without
+    one)."""
+    t, d, loss = cfg.train, cfg.data, cfg.model.loss
+    if t.parallel != "dp":
         raise NotImplementedError(
-            f"train.parallel={t.parallel!r}, mesh_shape={t.mesh_shape}: the "
-            f"port trains on one device; data, context and tensor "
-            f"parallelism are ROADMAP.md §A13")
+            f"train.parallel={t.parallel!r}: context parallelism ('cp', "
+            f"'dpcp') is not ported yet (ROADMAP.md A10)")
+    if "model" in t.mesh_axes:
+        raise NotImplementedError(
+            f"train.mesh_axes={tuple(t.mesh_axes)}: tensor parallelism over "
+            f"'model' is not ported yet (ROADMAP.md A10)")
+    world = 1 if mesh is None else mesh.size
+    mesh_size(t.mesh_shape, world)
+    if mesh is not None and loss.ring and loss.cross_replica:
+        raise NotImplementedError(
+            "loss.ring (the all-steps pool swept over a ring of ranks) is "
+            "not ported yet (ROADMAP.md A10); the port gathers the pool")
+    if d.batch_size % world:
+        raise ValueError(
+            f"batch_size {d.batch_size} is not divisible by the {world}-way "
+            f"data axis; pass a compatible mesh= or adjust data.batch_size")
     if d.device_corpus:
         raise NotImplementedError("data.device_corpus is not ported yet "
-                                  "(ROADMAP.md §A8)")
+                                  "(ROADMAP.md A8)")
     if d.augment:
         raise NotImplementedError("data.augment (on-device augmentation) is "
-                                  "not ported yet (ROADMAP.md §A9)")
+                                  "not ported yet (ROADMAP.md A7)")
     if t.accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {t.accum_steps}")
 
@@ -161,58 +187,68 @@ def init_state(cfg: CPCConfig, device=None) -> CPCModel:
                     generator=torch.Generator().manual_seed(cfg.train.seed))
 
 
-def dropout_generator(seed: int, count: int, microbatch: int,
-                      device) -> torch.Generator:
+def dropout_generator(seed: int, count: int, microbatch: int, device,
+                      rank: int = 0) -> torch.Generator:
     """The dropout draws of microbatch `microbatch` of optimizer step
-    `count`: a function of (train.seed, count, microbatch) alone."""
-    mixed = (seed * 0x9E3779B97F4A7C15 + count * 1_000_003 + microbatch)
+    `count` on rank `rank`: a function of (train.seed, count, microbatch,
+    rank) alone. Rank 0 draws what a single-device run draws."""
+    mixed = (seed * 0x9E3779B97F4A7C15 + count * 1_000_003 + microbatch
+             + rank * 0xD1B54A32D192ED03)
     return torch.Generator(device=device).manual_seed(mixed % (1 << 63))
 
 
-def make_step_fns(cfg: CPCConfig, model: CPCModel) -> StepFns:
-    check_supported(cfg)
+def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
+    """The train and eval steps of `model`; with a `mesh`, data-parallel
+    over its ranks (each step takes this rank's rows)."""
+    check_supported(cfg, mesh)
     opt = make_optimizer(cfg, model)
     loss_cfg = cfg.model.loss
     normalize = cfg.data.normalize
-    fuse_heads = resolve_fuse_heads(cfg)
+    fuse_heads = resolve_fuse_heads(cfg, mesh)
     accum = cfg.train.accum_steps
     params = dict(model.named_parameters())
     dropout = cfg.model.ar.kind == "transformer" and cfg.model.ar.dropout > 0
 
-    def loss_fn(model: CPCModel, batch: torch.Tensor, generator=None):
+    def loss_fn(model: CPCModel, batch: torch.Tensor, generator=None,
+                mesh=None):
         """(loss, metrics). With a `generator` (and ar.dropout > 0) the
-        transformer's dropout is live and draws from it."""
+        transformer's dropout is live and draws from it; with a `mesh` and
+        loss.cross_replica the candidate pool is every rank's latents."""
         x = device_prepare(batch, normalize=normalize)
         train = dropout and generator is not None
+        pool_mesh = mesh if loss_cfg.cross_replica else None
         if fuse_heads:
             z, c_tm = model.latents_tm(x, train, generator)
             W = model.prediction_heads.weight.t()  # (d_ar, K*d_enc)
             kdtype = torch.bfloat16 if loss_cfg.pallas_bf16 else torch.float32
             return fused_heads_infonce(
                 c_tm, z, W, num_steps=loss_cfg.prediction_steps,
-                compute_dtype=kdtype, c_time_major=True)
+                compute_dtype=kdtype, c_time_major=True, mesh=pool_mesh)
         out = model(x, train, generator)
         return infonce_loss_and_metrics(
-            out.preds, out.z, negatives=loss_cfg.negatives,
+            out.preds, out.z, negatives=loss_cfg.negatives, mesh=pool_mesh,
             use_pallas=loss_cfg.use_pallas,
             pallas_bf16=loss_cfg.pallas_bf16)
 
-    def train_step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def train_step(batch: torch.Tensor, mesh=None) -> Dict[str, torch.Tensor]:
         """One optimizer step. With accum_steps > 1 the batch splits into
         microbatches, each its own negative pool; grads and metrics are
-        averaged. Metrics stay on the device (reading them syncs)."""
+        averaged, and then over the ranks of `mesh`. Metrics stay on the
+        device (reading them syncs); p.grad keeps this rank's sum of its
+        microbatches' gradients."""
         B = batch.shape[0]
         if B % accum:
             raise ValueError(
                 f"batch {B} is not divisible by accum_steps {accum}")
         for p in params.values():
             p.grad = None
+        rank = 0 if mesh is None else mesh.rank
         per_mb = []
         mbs = batch.reshape(accum, B // accum, *batch.shape[1:])
         for i, mb in enumerate(mbs):
             gen = dropout_generator(cfg.train.seed, opt.count, i,
-                                    batch.device) if dropout else None
-            loss, metrics = loss_fn(model, mb, gen)
+                                    batch.device, rank) if dropout else None
+            loss, metrics = loss_fn(model, mb, gen, mesh)
             loss.backward()
             per_mb.append({k: v.detach() for k, v in metrics.items()})
         grads = {k: p.grad for k, p in params.items()}
@@ -220,13 +256,31 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel) -> StepFns:
             grads = {k: g / accum for k, g in grads.items()}
         metrics = {k: torch.stack([m[k] for m in per_mb]).mean(0)
                    for k in per_mb[0]}
+        if mesh is not None:
+            grads, metrics = _averaged(grads, metrics, mesh)
         metrics["grad_norm"] = global_norm(grads.values())
         opt.step(grads)
         return metrics
 
     @torch.no_grad()
-    def eval_step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return loss_fn(model, batch)[1]
+    def eval_step(batch: torch.Tensor, mesh=None) -> Dict[str, torch.Tensor]:
+        metrics = loss_fn(model, batch, mesh=mesh)[1]
+        if mesh is not None:
+            metrics = _averaged({}, metrics, mesh)[1]
+        return metrics
 
+    if mesh is not None:
+        train_step = dp_train_step(train_step, mesh)
+        eval_step = dp_eval_step(eval_step, mesh)
     return StepFns(train_step=train_step, eval_step=eval_step, optimizer=opt,
                    loss_fn=loss_fn)
+
+
+def _averaged(grads: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor],
+              mesh) -> Tuple[Dict[str, torch.Tensor],
+                             Dict[str, torch.Tensor]]:
+    """grads and metrics averaged over the ranks, in one all_reduce."""
+    names = list(grads) + list(metrics)
+    means = average(list(grads.values()) + list(metrics.values()), mesh)
+    out = dict(zip(names, means))
+    return ({k: out[k] for k in grads}, {k: out[k] for k in metrics})

@@ -1,13 +1,24 @@
-"""Trainer: the loop around the step, on one device.
+"""Trainer: the loop around the step, on one device or data-parallel.
 
-Port of the single-device path of `cpc_tpu/train/trainer.py::Trainer`: the
-step loop over the Batcher (whose thread assembles the next int16 batch
-while the device runs this one), logging of loss, accuracy, grad_norm and
-`audio_sec_per_sec` every `log_every` steps and at the end, validation every
-`eval_every` steps, a checkpoint every `checkpoint_every` steps and at the
-end, exact resume (`maybe_resume`), and SIGTERM handling: the loop saves a
-checkpoint and returns. The supervisor, multi-host runs and the parallel
-modes wait (ROADMAP.md §A9, §A13).
+Port of `cpc_tpu/train/trainer.py::Trainer`: the step loop over the Batcher
+(whose thread assembles the next int16 batch while the device runs this
+one), logging of loss, accuracy, grad_norm and `audio_sec_per_sec` every
+`log_every` steps and at the end, validation every `eval_every` steps, a
+checkpoint every `checkpoint_every` steps and at the end, exact resume
+(`maybe_resume`), and SIGTERM handling: the loop saves a checkpoint and
+returns.
+
+With a `mesh` (`parallel.mesh.ProcessMesh`, from `parallel.multihost.
+initialize`) every rank runs this loop on its card: the same seeded model
+and Batcher on every rank, rank 0's state broadcast after init and after a
+resume (`multihost.replicate`), each rank's rows of every global batch
+(`multihost.shard_batch`) through the data-parallel step, and the ranks'
+SIGTERM flags agreed on at every step (`multihost.any_true`), so that all
+save at the same step. Rank 0 alone writes the workdir (config.json,
+metrics.jsonl, checkpoints; a barrier follows each save); every rank
+restores from it. `audio_sec_per_sec` counts the global batch. The
+supervisor and the parallel modes beyond data parallelism wait
+(ROADMAP.md A7, A10).
 """
 
 from __future__ import annotations
@@ -17,13 +28,14 @@ import os
 import signal
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from cpc_tpu_torch.config import CPCConfig, to_dict
 from cpc_tpu_torch.data.dataset import SnippetDataset
 from cpc_tpu_torch.data.loader import Batcher, to_device
+from cpc_tpu_torch.parallel import multihost
 from cpc_tpu_torch.train.checkpoint import CheckpointManager
 from cpc_tpu_torch.train.metrics import MetricWriter
 from cpc_tpu_torch.train.train_step import init_state, make_step_fns
@@ -37,11 +49,18 @@ class Trainer:
         val_dataset: Optional[SnippetDataset] = None,
         workdir: Optional[str] = None,
         device="cuda",
+        mesh=None,
     ):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"device {self.device} is not the mesh's "
+                             f"device {mesh.device} for rank {mesh.rank}")
         self.model = init_state(cfg, self.device)
-        self.steps = make_step_fns(cfg, self.model)
+        self.steps = make_step_fns(cfg, self.model, mesh)
+        if mesh is not None:
+            multihost.replicate(self._state_tensors(), mesh)
         self.batcher = Batcher(
             train_dataset, cfg.data.batch_size, shuffle=cfg.data.shuffle,
             seed=cfg.train.seed, prefetch=cfg.data.prefetch,
@@ -52,11 +71,12 @@ class Trainer:
             self.val_batcher = Batcher(
                 val_dataset, cfg.data.batch_size, shuffle=False, seed=0,
                 transfer_dtype=cfg.data.transfer_dtype)
-        self.writer = MetricWriter(workdir)
+        main = multihost.is_main(mesh)
+        self.writer = MetricWriter(workdir if main else None, echo=main)
         self.ckpt = (CheckpointManager(
             os.path.join(workdir, cfg.train.checkpoint_dir),
             cfg.train.keep_checkpoints) if workdir else None)
-        if workdir:
+        if workdir and main:
             # the resolved config, so a run can be reproduced and resumed
             os.makedirs(workdir, exist_ok=True)
             with open(os.path.join(workdir, "config.json"), "w") as f:
@@ -64,23 +84,43 @@ class Trainer:
         self.step = 0
         self.preempted = False
 
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """The model's and the optimizer's tensors, which every rank holds
+        alike."""
+        opt = self.steps.optimizer
+        return [*self.model.state_dict().values(), *opt.mu.values(),
+                *opt.nu.values()]
+
     def maybe_resume(self) -> bool:
-        """Restores the newest checkpoint if there is one; True if it did."""
+        """Restores the newest checkpoint if there is one; True if it did.
+        Under a mesh every rank reads it, then takes rank 0's state."""
         if self.ckpt is None:
             return False
         got = self.ckpt.restore_latest(map_location=self.device)
-        if got is None:
-            return False
-        self.model.load_state_dict(got["model"])
-        self.steps.optimizer.load_state_dict(got["optimizer"])
-        self.step = int(got["meta"]["step"])
-        self.batcher.restore(got["meta"]["batcher"])
-        return True
+        if got is not None:
+            self.model.load_state_dict(got["model"])
+            self.steps.optimizer.load_state_dict(got["optimizer"])
+            self.step = int(got["meta"]["step"])
+            self.batcher.restore(got["meta"]["batcher"])
+        if self.mesh is None:
+            return got is not None
+        b = self.batcher.state()
+        place = torch.tensor([got is not None, self.step,
+                              self.steps.optimizer.count, b["seed"],
+                              b["epoch"], b["pos"]], dtype=torch.int64)
+        multihost.replicate([place, *self._state_tensors()], self.mesh)
+        resumed, self.step, self.steps.optimizer.count, *b = place.tolist()
+        self.batcher.restore(dict(zip(("seed", "epoch", "pos"), b)))
+        return bool(resumed)
 
     def _save(self) -> None:
-        self.ckpt.save(self.step, self.model.state_dict(),
-                       self.steps.optimizer.state_dict(),
-                       self.batcher.state())
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if multihost.is_main(self.mesh):
+            self.ckpt.save(
+                self.step, multihost.host_local(self.model.state_dict()),
+                multihost.host_local(self.steps.optimizer.state_dict()),
+                self.batcher.state())
+        multihost.barrier(self.mesh)
 
     # distinct from None: signal.signal() returns None when the previous
     # handler was installed from C, and that case must still be restored
@@ -112,8 +152,14 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _stage(self, host_batch) -> torch.Tensor:
+        """This rank's rows of a host batch, on its device."""
+        return to_device(multihost.shard_batch(host_batch, self.mesh),
+                         self.device)
+
     def _train_loop(self, total: int) -> Dict:
         data = self.cfg.data
+        # the global batch: every rank steps on its share of it
         audio_sec_per_batch = (data.batch_size * data.snippet_samples
                                / data.sample_rate)
         it = iter(self.batcher)
@@ -129,8 +175,7 @@ class Trainer:
         t_log, since_log = time.perf_counter(), 0
         while self.step < total:
             _, _, host_batch = next(it)
-            metrics = self.steps.train_step(to_device(host_batch,
-                                                      self.device))
+            metrics = self.steps.train_step(self._stage(host_batch))
             self.step += 1
             since_log += 1
             end = self.step == total
@@ -149,7 +194,10 @@ class Trainer:
                     self.step % cfg.checkpoint_every == 0 or end):
                 self._save()
                 saved = True
-            if self.preempted:
+            preempted = self.preempted
+            if multihost.active(self.mesh):
+                preempted = multihost.any_true(preempted, self.mesh)
+            if preempted:
                 if self.ckpt is not None and not saved:
                     self._save()
                 self.writer.write(self.step, {"preempted": 1.0, **last},
@@ -166,7 +214,7 @@ class Trainer:
         for i, (_, _, host_batch) in enumerate(self.val_batcher.one_epoch()):
             if i >= max_batches:
                 break
-            m = self.steps.eval_step(to_device(host_batch, self.device))
+            m = self.steps.eval_step(self._stage(host_batch))
             for k, v in m.items():
                 agg[k] = agg.get(k, 0.0) + v.float().cpu()
             n += 1

@@ -6,7 +6,8 @@ flash attention forward, one-pass backward, dQ and dK/dV, and the conv
 encoder's pyramid
 forward; then the extraction slice and a training step of each loss path,
 of the transformer gar and of the `encoder.use_pallas` route on the card
-against the same on the CPU.
+against the same on the CPU, and a data-parallel step on a one-rank NCCL
+group on the card against the CPU.
 
 Every test here is marked `cuda` and skips without a GPU. The file imports
 no jax, so it also runs where jax is not installed, without the suite's
@@ -14,6 +15,8 @@ conftest (which imports jax):
 
     python -m pytest tests/test_torch_port_cuda.py -q --noconftest
 """
+
+import socket
 
 import numpy as np
 import pytest
@@ -48,6 +51,7 @@ from cpc_tpu_torch.ops.infonce_fused import (heads_nll_backward,
                                              heads_nll_backward_reference,
                                              heads_nll_forward,
                                              heads_nll_reference)
+from cpc_tpu_torch.parallel import multihost
 from cpc_tpu_torch.train.train_step import init_state, make_step_fns
 
 pytestmark = pytest.mark.cuda
@@ -202,7 +206,9 @@ def _heads_inputs(T, B, C, K, D, dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,B,C,K,D,shift", [
     (128, 64, 64, 12, 512, 0), (20, 3, 6, 3, 40, 3), (9, 70, 200, 2, 33, 65),
-    (5, 1, 1, 4, 8, 0)])
+    (5, 1, 1, 4, 8, 0),
+    # rank 1 of dp_global_negatives on two cards: 32 rows, a pool of 64
+    (128, 32, 64, 12, 512, 32)])
 def test_heads_kernels_match_plain(T, B, C, K, D, shift, dtype):
     p, z, g = _heads_inputs(T, B, C, K, D, dtype)
     before = (heads_nll_forward.launches, heads_nll_backward.launches)
@@ -255,9 +261,11 @@ LOSS_KERNELS = {
     "all_steps": (allsteps_nll_forward, allsteps_nll_reference,
                   allsteps_nll_backward, allsteps_nll_backward_reference)}
 # (B, T, C, K, D, shift): tpu_fast; ragged with a shifted pool; more than
-# one row, column and D tile with ragged edges, D beyond one backward block
+# one row, column and D tile with ragged edges, D beyond one backward block;
+# rank 1 of dp_global_negatives on two cards (32 rows, a pool of 64)
 LOSS_SHAPES = [(64, 128, 64, 12, 512, 0), (3, 20, 6, 3, 40, 3),
-               (70, 9, 200, 2, 33, 65), (2, 6, 3, 2, 520, 1)]
+               (70, 9, 200, 2, 33, 65), (2, 6, 3, 2, 520, 1),
+               (32, 128, 64, 12, 512, 32)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -342,6 +350,39 @@ def test_train_step_on_card_matches_cpu(loss):
         steps = make_step_fns(cfg, model)
         metrics.append([steps.train_step(batch.to(device)) for _ in range(2)])
         models.append(model)
+    for m_cpu, m_gpu in zip(*metrics):
+        for k in ("loss", "grad_norm", "acc"):
+            torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-4,
+                                       atol=1e-5)
+    for (k, a), b in zip(models[0].state_dict().items(),
+                         models[1].state_dict().values()):
+        torch.testing.assert_close(b.cpu(), a, rtol=0, atol=1e-5, msg=k)
+
+
+def test_one_rank_nccl_dp_step_on_card_matches_cpu():
+    cfg = apply_overrides(presets.dp_global_negatives(), [
+        "model.encoder.channels=16,16,16,16,16", "model.encoder.d_enc=16",
+        "model.ar.d_ar=16", "model.loss.prediction_steps=3",
+        "model.dtype=float32", "model.loss.pallas_bf16=false",
+        "data.batch_size=4", "data.snippet_samples=2560"])
+    batch = torch.from_numpy(np.clip(np.random.default_rng(0).standard_normal(
+        (4, 2560)) * 5000, -32768, 32767).astype(np.int16))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mesh = multihost.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        metrics, models = [], []
+        for device, m in (("cpu", None), (mesh.device, mesh)):
+            model = init_state(cfg, device)
+            steps = make_step_fns(cfg, model, m)
+            before = heads_nll_forward.launches
+            metrics.append([steps.train_step(batch.to(device))
+                            for _ in range(2)])
+            models.append(model)
+        assert heads_nll_forward.launches == before + 2
+    finally:
+        multihost.shutdown()
     for m_cpu, m_gpu in zip(*metrics):
         for k in ("loss", "grad_norm", "acc"):
             torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-4,

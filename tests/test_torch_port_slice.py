@@ -247,7 +247,9 @@ SLICE_MODULES = [
     "cpc_tpu_torch.eval.__main__", "cpc_tpu_torch.train.train_step",
     "cpc_tpu_torch.train.metrics", "cpc_tpu_torch.train.checkpoint",
     "cpc_tpu_torch.train.trainer", "cpc_tpu_torch.train.cli",
-    "cpc_tpu_torch.train.__main__"]
+    "cpc_tpu_torch.train.__main__", "cpc_tpu_torch.parallel",
+    "cpc_tpu_torch.parallel.mesh", "cpc_tpu_torch.parallel.multihost",
+    "cpc_tpu_torch.parallel.dp"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cpc_tpu")
 
 
