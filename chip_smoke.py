@@ -196,6 +196,33 @@ Phases, in order; any failure exits non-zero:
    steps (the launches counted), then 5 + 5 with `--resume`, bit-equal;
    and `python -m cpc_tpu_torch.train --num-processes 2` on the one card
    under `--device cuda`, which must exit non-zero naming the cause.
+24. the data feed and the trainer's side features: (a) `ops.dsp.resample`
+   of 10 s at 44.1 and 48 kHz to 16 kHz on the card against float64 numpy
+   over the same phase table (1e-5 of the signal's largest value), then
+   600 s at 44.1 kHz timed, the first call apart; (b) `tpu_fast`'s
+   synthetic corpus at 44.1 kHz (64 speakers, 3 files of 4 s), 16 of its
+   files rewritten as FLAC by `data.flac_encoder` (8 stereo, mid-side),
+   decoded bit-equal to their PCM by the native decoder (built by g++
+   here), the decode rate on the host; (c) `python -m
+   cpc_tpu_torch.data.pack` of that corpus at 16 kHz on the card, every
+   packed snippet bit-equal to the live decode through `SnippetDataset`;
+   (d) `cpc_tpu_torch.train.cli.main --packed --device-corpus --augment`
+   for 10 steps of `tpu_fast`: metrics, checkpoint, the GRU and fused heads
+   kernels once a step and the other loss kernels never, TensorBoard's
+   tags in `tb/` (read here, CRCs checked), then 5 + 5 steps with
+   `--resume` bit-equal (cuDNN deterministic); (e) one step through the
+   device corpus against the host batch on the same indices, bit-equal,
+   then the host-batch step, the device-corpus step and the latter with
+   augmentation timed in turns; (f) `augment_waveform` on the card's
+   generator, each factor alone over 4 096 rows: gains, the polarity rate,
+   shifts recovered from a ramp, the measured SNR; (g) the CLI under
+   `--supervise --stale-after 120` for 20 steps, its child SIGKILLed once
+   its first checkpoint lands: restarted, exit 0, the final parameters
+   bit-equal to an unsupervised run's (both runs deterministic through a
+   sitecustomize module on their path), the restart's cost; (h) 3 steps
+   with `--profile` (a Chrome trace with CUDA kernels), 3 with
+   `--nan-debug`, and a Trainer step with a NaN weight under
+   `enable_nan_debug`, which must raise FloatingPointError naming step 1.
 
 With `--dp-cards N` it runs data parallelism across N cards under NCCL
 instead, what one card cannot run (`dp_cards_main`).
@@ -209,20 +236,24 @@ call computes the same function, that call's time (`library_ms`), its
 launches a rank under data parallelism (`dp_launches`: the CLI's one-rank
 run of phase 23(d) for the GRU's and the fused heads' kernels, one step of
 phase 23(b) for the other paths' loss kernels) and its time at the DP
-shape (`dp_ms`, phase 23(c); null for a kernel off the DP path); and, last,
-one JSON object naming the device.
+shape (`dp_ms`, phase 23(c); null for a kernel off the DP path), its
+launches in phase 24(d)'s CLI run on the packed corpus (`feed_launches`);
+and, last, one JSON object naming the device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import math
 import os
+import signal
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -235,9 +266,14 @@ import torch.distributed as dist
 from cpc_tpu_torch import CPCModel, extract_features, presets, serve
 from cpc_tpu_torch.config import apply_overrides, from_dict
 from cpc_tpu_torch.data.dataset import ProbeDataset, SnippetDataset
-from cpc_tpu_torch.data.loader import Batcher, device_prepare, to_device
+from cpc_tpu_torch.data import flac
+from cpc_tpu_torch.data.flac import read_flac
+from cpc_tpu_torch.data.flac_encoder import write_flac
+from cpc_tpu_torch.data.loader import (Batcher, device_prepare,
+                                       load_device_corpus, to_device)
+from cpc_tpu_torch.data.packed import PackedSnippetDataset
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
-from cpc_tpu_torch.data.wavio import decode_mono, write_wav
+from cpc_tpu_torch.data.wavio import decode_mono, read_wav, write_wav
 from cpc_tpu_torch.eval import cli as eval_cli
 from cpc_tpu_torch.eval import probes
 from cpc_tpu_torch.eval.cli import load_weights
@@ -256,6 +292,7 @@ from cpc_tpu_torch.ops.conv_cuda import (_ConvPyramidPlain, conv_chain,
                                          conv_pyramid_forward,
                                          conv_pyramid_reference, pack_weights,
                                          pyramid_launches, pyramid_route)
+from cpc_tpu_torch.ops import dsp
 from cpc_tpu_torch.ops.dsp import prepare_waveform
 from cpc_tpu_torch.ops.gru_cuda import (_GruScanPlain,
                                         cluster_exchange_probe, gru_route,
@@ -283,8 +320,12 @@ from cpc_tpu_torch.ops.scalogram import scalogram
 from cpc_tpu_torch.parallel import dp, multihost
 from cpc_tpu_torch.train import cli as train_cli
 from cpc_tpu_torch.train.checkpoint import CheckpointManager
+from cpc_tpu_torch.train.metrics import masked_crc32c
+from cpc_tpu_torch.train.supervisor import latest_checkpoint_step
 from cpc_tpu_torch.train.train_step import (global_norm, init_state,
                                             make_step_fns)
+from cpc_tpu_torch.train.trainer import Trainer
+from cpc_tpu_torch.utils.profiling import enable_nan_debug
 
 TOL = {torch.float32: 1e-4,   # fp32 with TF32 off: summation order only
        torch.bfloat16: 2e-2}  # bf16 rounding of h and wh over 128 steps
@@ -807,18 +848,18 @@ def train_through_cli(path: str) -> dict:
 
 
 def train_cli_run(label: str, config: str, extra, steps: int,
-                  per_step: dict, workdir=None) -> dict:
+                  per_step: dict, workdir=None, data="synthetic") -> dict:
     """Trains `config` through `cpc_tpu_torch.train.cli.main` for `steps`
-    steps with the arguments `extra`, every count set to 0 just before, in
-    `workdir` (else a temporary one). Checks the metrics, the checkpoint
-    and every kernel's launch count: per_step[name] per step, 0 for a
-    kernel it does not name. Returns the counts."""
+    steps on `data` with the arguments `extra`, every count set to 0 just
+    before, in `workdir` (else a temporary one). Checks the metrics, the
+    checkpoint and every kernel's launch count: per_step[name] per step, 0
+    for a kernel it does not name. Returns the counts."""
     for fn in COUNTED.values():
         fn.launches = 0
     with (contextlib.nullcontext(workdir) if workdir
           else tempfile.TemporaryDirectory()) as workdir:
         t0 = time.perf_counter()
-        rc = train_cli.main(["--config", config, "--data", "synthetic",
+        rc = train_cli.main(["--config", config, "--data", data,
                              "--steps", str(steps), "--workdir", workdir,
                              *extra])
         wall = time.perf_counter() - t0
@@ -2800,6 +2841,463 @@ def phase23d_cli(card: str) -> dict:
 
 
 
+# ---------------------------------------------------------------- phase 24
+FEED_SR = 44_100
+FEED_FLAC = 16          # files of the corpus written as FLAC, half stereo
+FEED_CLI_STEPS = 10
+SUPERVISED_STEPS = 20
+TB_TAGS = {"train/loss", "train/acc_mean", "train/audio_sec_per_sec",
+           *(f"train/acc_{k}" for k in range(1, 13))}
+
+
+def resample_f64(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """`resample`'s sum in float64 numpy, over the same float32 phase table
+    (cast up once): out[m] = sum_q xp[m*down//up + q] * h[m*down % up, q]."""
+    h, up, down = dsp._resample_kernel(sr_in, sr_out)
+    h = h.astype(np.float64)
+    taps = h.shape[1]
+    xp = np.pad(x.astype(np.float64), (taps // 2, taps // 2))
+    m = np.arange(len(x) * up // down)
+    out = np.empty(len(m))
+    for a in range(0, len(m), 20_000):
+        mm = m[a:a + 20_000]
+        win = xp[(mm * down // up)[:, None] + np.arange(taps)[None, :]]
+        out[a:a + 20_000] = (win * h[mm * down % up]).sum(1)
+    return out
+
+
+def phase24a_resample(card: str) -> None:
+    """10 s at 44.1 and 48 kHz to 16 kHz on the card against float64
+    numpy; then 600 s at 44.1 kHz timed."""
+    rng = np.random.default_rng(24)
+    for sr in (44_100, 48_000):
+        t = np.arange(10 * sr) / sr
+        x = (0.3 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(
+            2 * np.pi * 5_000 * t) + 0.05 * rng.standard_normal(len(t))
+             ).astype(np.float32)
+        got = dsp.resample(torch.from_numpy(x[None]).cuda(), sr, 16_000)
+        want = resample_f64(x, sr, 16_000)
+        err = float(np.abs(got[0].double().cpu().numpy() - want).max()
+                    / np.abs(want).max())
+        print(f"feed (a): resample {sr} -> 16000 Hz of 10 s on the card: "
+              f"{tuple(got.shape)}, max error {err:.3e} of the signal's "
+              f"largest value against float64 numpy (tol 1e-5)", flush=True)
+        check(got.shape == (1, len(want)) and err <= 1e-5,
+              f"resample {sr}: error {err}")
+    x = torch.from_numpy(rng.standard_normal((1, 600 * FEED_SR)).astype(
+        np.float32) * 0.1).cuda()
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dsp.resample(x, FEED_SR, 16_000)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    first = timed()
+    runs = [timed() for _ in range(5)]
+    print(f"feed (a): resample of 600 s at 44.1 kHz on {card}: first call "
+          f"{first:.4f} s, then {statistics.median(runs):.4f} s (median of "
+          f"5, host clock, CUDA sync) = {600 / statistics.median(runs):.0f} "
+          f"audio-s/s", flush=True)
+
+
+def phase24b_flac(card: str, root: str) -> str:
+    """tpu_fast's corpus at 44.1 kHz (64 speakers, 3 files of 4 s), 16 of
+    its files rewritten as FLAC (half stereo): each decodes to its PCM."""
+    corpus = os.path.join(root, "corpus44")
+    t0 = time.perf_counter()
+    paths = generate_synthetic_corpus(corpus, num_speakers=64,
+                                      files_per_speaker=3,
+                                      seconds_per_file=4.0,
+                                      sample_rate=FEED_SR, seed=0)
+    made = time.perf_counter() - t0
+    written, t0 = [], time.perf_counter()
+    for i, path in enumerate(paths[::len(paths) // FEED_FLAC][:FEED_FLAC]):
+        x, sr = read_wav(path)
+        pcm = np.round(x[:, 0].astype(np.float64) * 32768).astype(np.int64)
+        if i % 2:  # stereo: a second channel, mid-side coded
+            pcm = np.stack([pcm, (3 * pcm) // 4], axis=1)
+        flac_path = path[:-4] + ".flac"
+        write_flac(flac_path, pcm, sr,
+                   stereo_mode="mid_side" if i % 2 else "independent")
+        os.remove(path)
+        written.append((flac_path, pcm))
+    enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flac.load_library()  # g++ builds the decoder here, at first use
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = [read_flac(p) for p, _ in written]
+    dec = time.perf_counter() - t0
+    for (path, pcm), (y, sr) in zip(written, decoded):
+        got = np.round(y.astype(np.float64) * 32768).astype(np.int64)
+        check(sr == FEED_SR and np.array_equal(
+            got, pcm if pcm.ndim == 2 else pcm[:, None]),
+              f"{path}: decoded samples differ from the encoded PCM")
+    audio = sum(len(p) for _, p in written) / FEED_SR
+    print(f"feed (b): corpus of {len(paths)} files of 4 s at 44.1 kHz "
+          f"written in {made:.2f} s; {FEED_FLAC} as FLAC ({FEED_FLAC // 2} "
+          f"stereo) encoded in {enc:.2f} s (numpy, bit by bit); the "
+          f"decoder built by g++ and loaded in {built:.2f} s; decoded "
+          f"bit-equal to their PCM, {audio:.1f} audio-s in {dec:.4f} s = "
+          f"{audio / dec:.0f} audio-s/s on the host of {card}", flush=True)
+    return corpus
+
+
+def phase24c_pack(card: str, root: str, corpus: str) -> str:
+    """`python -m cpc_tpu_torch.data.pack` at 16 kHz on the card; every
+    packed snippet bit-equal to the live decode."""
+    packed = os.path.join(root, "packed")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cpc_tpu_torch.data.pack",
+                           corpus, packed, "--rate", "16000"],
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"pack exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    S = presets.tpu_fast().data.snippet_samples
+    ds, live = PackedSnippetDataset(packed, S), SnippetDataset(corpus, S,
+                                                               device="cuda")
+    differ = [i for i in range(len(ds))
+              if not np.array_equal(ds.snippet_int16(i),
+                                    live.snippet_int16(i))]
+    print(f"feed (c): python -m cpc_tpu_torch.data.pack on the card "
+          f"({card}): {proc.stdout.strip()} in {wall:.2f} s wall (process "
+          f"start-up included); {len(ds)} snippets, {len(differ)} differ "
+          f"from the live decode through SnippetDataset", flush=True)
+    check(len(ds) == len(live) == 576 and not differ,
+          f"packed snippets differ from the live decode: {differ[:5]}")
+    return packed
+
+
+def tb_scalars(log_dir: str) -> dict:
+    """{tag: [(step, value)]} from the event files under log_dir, every
+    record's masked CRC-32C checked; a small reader of TFRecord framing and
+    of the Event, Summary and Value protobufs."""
+    def fields(buf):
+        pos = 0
+        while pos < len(buf):
+            key, pos = varint(buf, pos)
+            num, wire = key >> 3, key & 7
+            if wire == 0:
+                val, pos = varint(buf, pos)
+            elif wire == 1:
+                val, pos = buf[pos:pos + 8], pos + 8
+            elif wire == 2:
+                n, pos = varint(buf, pos)
+                val, pos = buf[pos:pos + n], pos + n
+            elif wire == 5:
+                val, pos = buf[pos:pos + 4], pos + 4
+            else:
+                raise ValueError(f"wire type {wire}")
+            yield num, val
+
+    def varint(buf, pos):
+        out = shift = 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            out |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return out, pos
+
+    scalars: dict = {}
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), "rb") as f:
+            data = f.read()
+        pos = 0
+        while pos < len(data):
+            head = data[pos:pos + 8]
+            (n,) = struct.unpack("<Q", head)
+            payload = data[pos + 12:pos + 12 + n]
+            crcs = struct.unpack("<II", data[pos + 8:pos + 12]
+                                 + data[pos + 12 + n:pos + 16 + n])
+            check(crcs == (masked_crc32c(head), masked_crc32c(payload)),
+                  f"{name}: a record's CRC does not match")
+            pos += 16 + n
+            event = dict(fields(payload))
+            for num, value in fields(event.get(5, b"")):
+                v = dict(fields(value))
+                scalars.setdefault(v[1].decode(), []).append(
+                    (event.get(2, 0), struct.unpack("<f", v[2])[0]))
+    return scalars
+
+
+def phase24d_train(card: str, root: str, packed: str) -> dict:
+    """tpu_fast through the CLI on the packed corpus with --packed
+    --device-corpus --augment: launches, metrics, checkpoint and
+    TensorBoard tags; then 5 + 5 steps with --resume bit-equal to the
+    straight run (cuDNN deterministic in all three)."""
+    feed = ["--packed", "--device-corpus", "--augment"]
+    straight, resumed = (os.path.join(root, n) for n in ("d_a", "d_b"))
+    with forced("deterministic", True, module=torch.backends.cudnn):
+        counts = train_cli_run("packed, device corpus, augment", "tpu_fast",
+                               feed, FEED_CLI_STEPS,
+                               {k: 1 for k in GRU_KERNELS + HEADS_KERNELS},
+                               workdir=straight, data=packed)
+        for steps, extra in ((5, []), (FEED_CLI_STEPS, ["--resume"])):
+            rc = train_cli.main(["--config", "tpu_fast", "--data", packed,
+                                 *feed, "--workdir", resumed, "--steps",
+                                 str(steps), *extra])
+            check(rc == 0, f"feed cli leg of {steps} steps returned {rc}")
+    scalars = tb_scalars(os.path.join(straight, "tb"))
+    with open(os.path.join(straight, "metrics.jsonl")) as f:
+        last = [json.loads(line) for line in f][-1]
+    missing = TB_TAGS - set(scalars)
+    print(f"feed (d): tb/ holds {len(scalars)} tags, "
+          f"{sorted(scalars)[:6]}...; train/loss at step "
+          f"{scalars['train/loss'][-1][0]}: {scalars['train/loss'][-1][1]} "
+          f"(metrics.jsonl {last['loss']}); missing {sorted(missing)}",
+          flush=True)
+    check(not missing and scalars["train/loss"][-1] == (
+        FEED_CLI_STEPS, np.float32(last["loss"])),
+          f"TensorBoard tags: missing {missing}")
+    ckpts = [CheckpointManager(os.path.join(w, "checkpoints"))
+             .restore_latest() for w in (straight, resumed)]
+    differ = [k for k, v in ckpts[0]["model"].items()
+              if not torch.equal(v, ckpts[1]["model"][k])]
+    print(f"feed (d): {FEED_CLI_STEPS} CLI steps straight vs 5 + "
+          f"{FEED_CLI_STEPS - 5} resumed under --augment (cuDNN "
+          f"deterministic): step {ckpts[1]['meta']['step']} checkpoints' "
+          f"tensors that differ: {differ}", flush=True)
+    check(not differ and ckpts[0]["meta"] == ckpts[1]["meta"],
+          f"the resumed --augment run differs: {differ}")
+    return counts
+
+
+def phase24e_feeds(card: str, packed: str) -> dict:
+    """One tpu_fast step through the device corpus against the host batch
+    on the same indices (bit-equal, cuDNN deterministic); then the two
+    feeds' steps and the step with --augment timed in turns."""
+    base = presets.tpu_fast()
+    cfgs = {name: dataclasses.replace(base, data=dataclasses.replace(
+        base.data, device_corpus=dc, augment=aug))
+        for name, dc, aug in (("host", False, False), ("device", True, False),
+                              ("augment", True, True))}
+    ds = PackedSnippetDataset(packed, base.data.snippet_samples)
+    corpus = load_device_corpus(ds, "cuda")
+    models = {k: init_state(c, "cuda") for k, c in cfgs.items()}
+    steps = {k: make_step_fns(cfgs[k], m).train_step
+             for k, m in models.items()}
+    batcher = Batcher(ds, base.data.batch_size, seed=0, yield_indices=True)
+    idx = next(iter(batcher))[2]
+    batcher.close()
+
+    def host_step():
+        host = np.stack([ds.snippet_int16(int(i)) for i in idx])
+        return steps["host"](to_device(host, "cuda"))
+
+    def device_step(name="device"):
+        return steps[name](corpus, to_device(idx, "cuda"))
+    with forced("deterministic", True, module=torch.backends.cudnn):
+        m0, m1 = host_step(), device_step()
+        torch.cuda.synchronize()
+    diffs = [k for k in m0 if not torch.equal(m0[k], m1[k])]
+    named = list(zip(models["host"].named_parameters(),
+                     models["device"].parameters()))
+    diffs += [f"grad {k}" for (k, a), b in named
+              if not torch.equal(a.grad, b.grad)]
+    diffs += [f"param {k}" for (k, a), b in named if not torch.equal(a, b)]
+    print(f"feed (e): the device-corpus step vs the host-batch step on the "
+          f"same indices (tpu_fast, bf16, cuDNN deterministic): loss "
+          f"{m1['loss'].item():.6f} vs {m0['loss'].item():.6f}; metrics, "
+          f"the {len(named)} gradients and the parameters after the update "
+          f"bit-equal: {not diffs} {diffs[:5]}", flush=True)
+    check(not diffs, f"device-corpus step differs from the host step: "
+          f"{diffs}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    fns = {"host": host_step, "device": device_step,
+           "augment": lambda: device_step("augment"),
+           "assembly": lambda: np.stack([ds.snippet_int16(int(i))
+                                         for i in idx])}
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    runs = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]) * 5:
+        for k in order:
+            runs[k].append(timed(fns[k]))
+    ms = {k: statistics.median(v) * 1e3 for k, v in runs.items()}
+    print(f"feed (e) times on {card}, tpu_fast bf16 batch 64 (median of 10 "
+          f"each, in turns, host clock, CUDA sync): the host-batch step "
+          f"{ms['host']:.3f} ms (the packed batch's assembly on the host "
+          f"{ms['assembly']:.3f} ms of it, then the pinned copy), the "
+          f"device-corpus step {ms['device']:.3f} ms "
+          f"({ms['host'] - ms['device']:+.3f} ms for the host feed), the "
+          f"device-corpus step with --augment {ms['augment']:.3f} ms "
+          f"({ms['augment'] - ms['device']:+.3f} ms for the augmentation)",
+          flush=True)
+    return ms
+
+
+def phase24f_augment(card: str) -> None:
+    """augment_waveform on the card, each factor alone, by distribution
+    over 4 096 rows of the card's generator."""
+    rows, S, snr_db = 4096, 20_480, 30.0
+    d = presets.tpu_fast().data
+
+    def aug(x, **kw):
+        opts = {**dict(gain_db=0.0, noise_snr_db=100.0, shift_max=0,
+                       polarity=False), **kw}
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        return dsp.augment_waveform(x, gen, **opts).double().cpu().numpy()
+    ones = torch.ones((rows, 64), device="cuda")
+    db = 20 * np.log10(aug(ones, gain_db=d.augment_gain_db)[:, 0])
+    flips = (aug(ones, polarity=True)[:, 0] < 0).mean()
+    ramp = torch.arange(S, device="cuda", dtype=torch.float32).expand(rows, S)
+    out = aug(ramp, shift_max=d.augment_shift_max)
+    shift = out[:, 0].astype(np.int64)
+    shift = np.where(shift > S // 2, shift - S, shift)
+    exact = np.array_equal(out, (np.arange(S)[None, :] + shift[:, None]) % S)
+    x = torch.randn((rows, S), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    noisy = aug(x, noise_snr_db=snr_db)
+    clean = x.double().cpu().numpy()
+    snr = 10 * np.log10((clean ** 2).mean(1)
+                        / ((noisy - clean) ** 2).mean(1))
+    print(f"feed (f): augmentation on {card}, 4 096 rows each: gain "
+          f"{db.min():+.4f} to {db.max():+.4f} dB (+-{d.augment_gain_db}); "
+          f"polarity flipped {flips:.4f} (0.5 +- 0.03); shifts "
+          f"{shift.min()} to {shift.max()} (+-{d.augment_shift_max}), "
+          f"recovered exactly from a ramp: {exact}; measured SNR "
+          f"{snr.min():.3f} to {snr.max():.3f} dB ([{snr_db:.0f}, "
+          f"{snr_db + 20:.0f}] over {S} samples)", flush=True)
+    check(np.abs(db).max() <= d.augment_gain_db + 1e-4
+          and db.min() < -5.9 and db.max() > 5.9, f"gains {db.min()}, "
+          f"{db.max()}")
+    check(abs(flips - 0.5) <= 0.03, f"polarity rate {flips}")
+    check(exact and np.abs(shift).max() == d.augment_shift_max,
+          "shifts not recovered")
+    # a noise power over 20 480 samples: within 0.15 dB at 4 sigma
+    check(snr.min() > snr_db - 0.15 and snr.max() < snr_db + 20.15,
+          f"SNR {snr.min()} to {snr.max()}")
+
+
+def phase24g_supervisor(card: str, root: str, packed: str) -> None:
+    """The CLI under --supervise, its child SIGKILLed once its first
+    checkpoint lands: restarted, exit 0, final parameters bit-equal to an
+    unsupervised run's. Both runs' processes take cuDNN's deterministic
+    algorithms from a sitecustomize module on their path."""
+    site = os.path.join(root, "site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write("import torch\ntorch.backends.cudnn.deterministic = True\n")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (site, os.getcwd(), os.environ.get("PYTHONPATH")) if p)}
+    supervised, plain = (os.path.join(root, n) for n in ("g_sup", "g_plain"))
+    args = [sys.executable, "-m", "cpc_tpu_torch.train", "--config",
+            "tpu_fast", "--data", packed, "--packed", "--device-corpus",
+            "--augment", "--steps", str(SUPERVISED_STEPS), "--set",
+            "train.checkpoint_every=5", "--set", "train.log_every=1"]
+    proc = subprocess.Popen([*args, "--workdir", supervised, "--supervise",
+                             "--stale-after", "120"], env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    pid_path = os.path.join(supervised, "supervisor_child.pid")
+    killed_at, deadline = None, time.time() + 600
+    try:
+        while proc.poll() is None and time.time() < deadline:
+            if killed_at is None and os.path.exists(pid_path) and \
+                    latest_checkpoint_step(supervised) >= 5:
+                with open(pid_path) as f:
+                    os.kill(int(f.read()), signal.SIGKILL)
+                killed_at = time.time()
+            time.sleep(0.005)
+        _, err = proc.communicate(timeout=max(1, deadline - time.time()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0 and killed_at is not None,
+          f"supervised run exited {proc.returncode}, killed "
+          f"{killed_at is not None}: {err[-2000:]}")
+    with open(os.path.join(supervised, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    after = [r for r in recs if r["time"] > killed_at]
+    restart_s = after[0]["time"] - killed_at
+    rc = subprocess.run([*args, "--workdir", plain], env=env,
+                        capture_output=True, text=True, timeout=600)
+    check(rc.returncode == 0, f"unsupervised run: {rc.stderr[-2000:]}")
+    ckpts = [CheckpointManager(os.path.join(w, "checkpoints"))
+             .restore_latest() for w in (plain, supervised)]
+    differ = [k for k, v in ckpts[0]["model"].items()
+              if not torch.equal(v, ckpts[1]["model"][k])]
+    print(f"feed (g): --supervise --stale-after 120, {SUPERVISED_STEPS} "
+          f"steps, child SIGKILLed after its step-5 checkpoint: exit "
+          f"{proc.returncode}, resumed at step {after[0]['step']}; restart "
+          f"cost {restart_s:.2f} s from the kill to the resumed child's "
+          f"first step logged (the supervisor's 10 s backoff, the new "
+          f"process, the corpus upload and the step included) on {card}; "
+          f"final tensors that differ from an unsupervised run's: {differ}",
+          flush=True)
+    check(not differ and ckpts[0]["meta"] == ckpts[1]["meta"]
+          and ckpts[1]["meta"]["step"] == SUPERVISED_STEPS,
+          f"the supervised run's parameters differ: {differ}")
+
+
+def phase24h_debug(card: str, root: str, packed: str) -> None:
+    """3 steps with --profile leave a trace; 3 with --nan-debug finish; a
+    Trainer step with a NaN weight under nan-debug raises
+    FloatingPointError naming the step."""
+    feed = ["--packed", "--device-corpus", "--augment"]
+    per_step = {k: 1 for k in GRU_KERNELS + HEADS_KERNELS}
+    wd = os.path.join(root, "h_profile")
+    train_cli_run("--profile", "tpu_fast", [*feed, "--profile"], 3,
+                  per_step, workdir=wd, data=packed)
+    trace_path = os.path.join(wd, "profile", "trace.json")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"feed (h): --profile wrote {trace_path} "
+          f"({os.path.getsize(trace_path)} bytes, {len(events)} events, "
+          f"{kernels} of them CUDA kernels)", flush=True)
+    check(kernels > 0, "the trace holds no CUDA kernel")
+    train_cli_run("--nan-debug", "tpu_fast", [*feed, "--nan-debug"], 3,
+                  per_step, workdir=os.path.join(root, "h_nan"), data=packed)
+    cfg = presets.tpu_fast()
+    trainer = Trainer(cfg, PackedSnippetDataset(packed,
+                                                cfg.data.snippet_samples),
+                      device="cuda")
+    try:
+        with torch.no_grad():
+            trainer.model.prediction_heads.weight[0, 0] = float("nan")
+        enable_nan_debug()
+        try:
+            trainer.train(1)
+            raised = "no error"
+        except FloatingPointError as e:
+            raised = str(e)
+    finally:
+        enable_nan_debug(False)
+        trainer.close()
+    print(f"feed (h): a Trainer step with one NaN weight under nan-debug "
+          f"raised FloatingPointError: {raised!r}", flush=True)
+    check("at step 1, in the forward" in raised, f"nan-debug: {raised}")
+
+
+def phase24_feed(card: str) -> dict:
+    """Phase 24: resampling, FLAC, packing, the feeds through the CLI and
+    against each other, augmentation, the supervisor, profiling and
+    nan-debug. Returns the CLI run's launches."""
+    with tempfile.TemporaryDirectory() as root:
+        phase24a_resample(card)
+        corpus = phase24b_flac(card, root)
+        packed = phase24c_pack(card, root, corpus)
+        counts = phase24d_train(card, root, packed)
+        phase24e_feeds(card, packed)
+        phase24f_augment(card)
+        phase24g_supervisor(card, root, packed)
+        phase24h_debug(card, root, packed)
+    return counts
+
+
 # ------------------------------------------------ data parallelism, N cards
 DP_CARDS_STEPS = {"fp32": 10, "bf16": 30}
 FP32_SETS = ["--set", "model.dtype=float32",
@@ -3122,6 +3620,12 @@ def main() -> None:
     dp_launches.update({k: cli_counts[k] for k in GRU_KERNELS
                         + HEADS_KERNELS})
 
+    # 24. the data feed and the trainer's side features: resampling, FLAC,
+    # packing, --packed --device-corpus --augment through the CLI, the two
+    # feeds against each other, augmentation, the supervisor, profiling
+    # and nan-debug
+    feed_launches = phase24_feed(card)
+
     sources = {
         "gru_scan": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:57"),
         "gru_scan_backward": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:82"),
@@ -3154,7 +3658,8 @@ def main() -> None:
         "name": name, "route": "cuda",
         "source": f"cpc_tpu_torch/csrc/{src}", "replaces": tpu,
         "launches": counts[name], **{k: measured[name][k] for k in keys},
-        "dp_launches": dp_launches.get(name, 0), "dp_ms": dp_ms.get(name)}
+        "dp_launches": dp_launches.get(name, 0), "dp_ms": dp_ms.get(name),
+        "feed_launches": feed_launches[name]}
         for name, (src, tpu) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

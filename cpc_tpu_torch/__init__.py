@@ -7,10 +7,12 @@ waveform prep, the conv1d encoder and the scalogram encoder with its
 on-device front end, GRU gar, CPC wrapper, weights from the JAX package,
 `extract_features` and its CLI), evaluation and serving (the linear probes
 and their battery, `python -m cpc_tpu_torch.eval --battery`; the streaming
-extractor and `python -m cpc_tpu_torch.serve`) and single-device training
-(same-step InfoNCE, fused heads, optax's Adam, trainer with exact resume,
-`python -m cpc_tpu_torch.train`), with the GRU or the causal transformer as
-the context network. Every kernel the JAX package wrote in Pallas has a
+extractor and `python -m cpc_tpu_torch.serve`) and training on one card
+or data-parallel (every InfoNCE path, optax's Adam, a trainer with exact
+resume, `python -m cpc_tpu_torch.train`) fed from WAV, FLAC or packed
+corpora at any rate, with on-device augmentation, the device-resident
+corpus and the supervisor, with the GRU or the causal transformer as the
+context network. Every kernel the JAX package wrote in Pallas has a
 hand-written CUDA counterpart (csrc/): the GRU recurrence, the three InfoNCE
 paths and the causal flash attention, forward and backward, and the conv
 encoder's pyramid, forward (`encoder.use_pallas`).

@@ -1,2 +1,3 @@
-"""Host data for the PyTorch port: WAV I/O, the snippet index, synthetic
-corpora (numpy only) and the prefetching Batcher."""
+"""Host data for the PyTorch port: WAV and FLAC I/O (the FLAC decoder
+native, built by g++ at first use), the snippet index, packed corpora,
+synthetic corpora (numpy only) and the prefetching Batcher."""

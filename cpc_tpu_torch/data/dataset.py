@@ -9,14 +9,17 @@ flat index; item i is the i-th fixed-length snippet, float32, or int16 from
 a per-file quantized cache for the int16 wire format. Both packages build
 the same index over the same corpus (tests/test_torch_port_data.py).
 
-WAV only: a `.flac` file is listed, as the JAX package lists it, and raises
-when it is decoded, as does a file whose rate is not the configured one
-(FLAC and resampling wait, ROADMAP.md A8). The index arithmetic for such a
-file is the JAX package's, so the index itself never differs.
+WAV and FLAC (`data.wavio.decode_mono`). A file's snippet count comes from
+its WAV header or FLAC STREAMINFO, converted to the target rate as the
+resampler counts; a FLAC stream whose total is unknown (0) is decoded. A
+file at another rate is resampled once, when it is decoded, on the
+dataset's `device` (the CLIs pass their `--device`); one at the target rate
+never touches it.
 
 `ProbeDataset` adds the downstream probes' labels, as the JAX package's
 does: the speaker from the directory layout, and per-sample phone labels
-from a sibling `<utt>.phones.npy` (the synthetic corpus writes both).
+from a sibling `<utt>.phones.npy` (the synthetic corpus writes both),
+remapped to the nearest native sample for a file at another rate.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from cpc_tpu_torch.data.wavio import decode_mono, wav_info
+from cpc_tpu_torch.data.wavio import INFOS, decode, decode_mono
 
 AUDIO_EXTS = (".wav", ".flac")
 
@@ -45,16 +48,18 @@ class _DecodedCache:
     """Small LRU of decoded mono float32 waveforms, and of their int16
     quantization (made once per file), with separate budgets."""
 
-    def __init__(self, sample_rate: int, max_items: int = 256):
+    def __init__(self, sample_rate: int, max_items: int = 256,
+                 device="cuda"):
         self.sample_rate = sample_rate
         self.max_items = max_items
+        self.device = device
         self._float: Dict[str, np.ndarray] = {}
         self._i16: Dict[str, np.ndarray] = {}
 
     def get(self, path: str) -> np.ndarray:
         x = self._float.pop(path, None)
         if x is None:
-            x, _ = decode_mono(path, self.sample_rate)
+            x, _ = decode_mono(path, self.sample_rate, self.device)
         self._float[path] = x
         while len(self._float) > self.max_items:
             self._float.pop(next(iter(self._float)))
@@ -106,7 +111,8 @@ class FlatSnippetIndex:
 
 
 class SnippetDataset(FlatSnippetIndex):
-    """Flat snippet index over a corpus directory."""
+    """Flat snippet index over a corpus directory; files at another rate
+    are resampled on `device`."""
 
     def __init__(
         self,
@@ -115,12 +121,13 @@ class SnippetDataset(FlatSnippetIndex):
         snippet_stride: Optional[int] = None,
         sample_rate: int = 16_000,
         cache_items: int = 256,
+        device="cuda",
     ):
         self.corpus_dir = corpus_dir
         self.snippet_samples = snippet_samples
         self.snippet_stride = snippet_stride or snippet_samples
         self.sample_rate = sample_rate
-        self._cache = _DecodedCache(sample_rate, cache_items)
+        self._cache = _DecodedCache(sample_rate, cache_items, device)
 
         self.files: List[str] = []
         self._file_snippets: List[int] = []
@@ -133,19 +140,18 @@ class SnippetDataset(FlatSnippetIndex):
         self._finalize_index(corpus_dir)
 
     def _num_samples(self, path: str) -> int:
-        """Target-rate sample count, from the WAV header; other files are
-        decoded (which raises for FLAC)."""
-        if os.path.splitext(path)[1].lower() == ".wav":
-            try:
-                n, sr = wav_info(path)
-            except (ValueError, OSError):
-                n = 0
-            if n > 0:
-                if sr == self.sample_rate:
-                    return n
-                # the JAX package's resampled length (cpc_tpu.ops.dsp)
-                g = int(np.gcd(sr, self.sample_rate))
-                return (n * (self.sample_rate // g)) // (sr // g)
+        """Target-rate sample count, from the file's header when it gives
+        one; else from a decode."""
+        try:
+            n, sr = INFOS[os.path.splitext(path)[1].lower()](path)
+        except (ValueError, OSError):
+            n = 0
+        if n > 0:
+            if sr == self.sample_rate:
+                return n
+            # ops.dsp.resample's output length
+            g = int(np.gcd(sr, self.sample_rate))
+            return (n * (self.sample_rate // g)) // (sr // g)
         return len(self._cache.get(path))
 
     def __getitem__(self, idx: int) -> np.ndarray:
@@ -171,8 +177,9 @@ class ProbeDataset(SnippetDataset):
     Speaker labels come from the directory layout; phone labels from sibling
     `<utt>.phones.npy` per-sample label files when present. A label window
     that is short or missing gives None (the phone probe skips the snippet).
-    A file whose rate is not the configured one raises at decode, before its
-    labels are read (resampling waits, ROADMAP.md A8)."""
+    The labels are per native sample: for a file at another rate, each
+    target sample takes the label of the native sample at or before it, as
+    `data.packed.pack_corpus` remaps them."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -180,6 +187,7 @@ class ProbeDataset(SnippetDataset):
                            for i in range(len(self.files))})
         self.speaker_to_id = {s: i for i, s in enumerate(speakers)}
         self.num_speakers = len(speakers)
+        self._rates: Dict[str, int] = {}
 
     def item_with_labels(self, idx: int):
         """(snippet float32 (S,), speaker id, phone labels (S,) or None)."""
@@ -189,6 +197,22 @@ class ProbeDataset(SnippetDataset):
         phones = None
         lab_path = os.path.splitext(path)[0] + ".phones.npy"
         if os.path.exists(lab_path):
-            w = np.load(lab_path)[off:off + self.snippet_samples]
-            phones = w if len(w) == self.snippet_samples else None
+            lab = np.load(lab_path)
+            sr = self._native_rate(path)
+            if sr == self.sample_rate:
+                w = lab[off:off + self.snippet_samples]
+                phones = w if len(w) == self.snippet_samples else None
+            else:
+                src = (np.arange(off, off + self.snippet_samples)
+                       * sr) // self.sample_rate
+                phones = lab[src] if src[-1] < len(lab) else None
         return x, spk, phones
+
+    def _native_rate(self, path: str) -> int:
+        if path not in self._rates:
+            try:
+                sr = INFOS[os.path.splitext(path)[1].lower()](path)[1]
+            except (ValueError, OSError):
+                sr = 0
+            self._rates[path] = sr or decode(path)[1]
+        return self._rates[path]

@@ -10,9 +10,13 @@ through a pinned host buffer with a non-blocking copy; `device_prepare`
 dequantizes and normalizes on the device. Under data parallelism every rank
 runs the same Batcher, so every rank assembles the same global batch and
 keeps the same state; each takes its rows (`parallel.multihost.
-shard_batch`) before `to_device`, so that it copies only its own share. The
-device-resident corpus (`data.device_corpus`, `yield_indices`) waits
-(ROADMAP.md A8).
+shard_batch`) before `to_device`, so that it copies only its own share.
+
+The device-resident corpus (`data.device_corpus`): `load_device_corpus`
+uploads every snippet once as one (N, S) int16 tensor, and the Batcher
+built with `yield_indices` yields the (B,) int32 snippet indices instead
+of the batch, in the same (seed, epoch, pos) order with the same resume
+state; the step gathers its rows on the device.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ class Batcher:
     """Iterates (epoch, step, batch (B, S)) with background prefetch; int16
     batches by default (`transfer_dtype`), float32 otherwise. Every batch is
     full: an epoch's last len(dataset) % B snippets are dropped. It starts
-    at epoch 0, batch 0; `restore` resumes elsewhere."""
+    at epoch 0, batch 0; `restore` resumes elsewhere. With `yield_indices`
+    it yields the (B,) int32 snippet indices and decodes nothing."""
 
     def __init__(
         self,
@@ -62,6 +67,7 @@ class Batcher:
         prefetch: int = 2,
         transfer_dtype: str = "int16",
         num_workers: int = 0,
+        yield_indices: bool = False,
     ):
         if len(dataset) < batch_size:
             raise ValueError(
@@ -74,6 +80,7 @@ class Batcher:
         self.transfer_dtype = transfer_dtype
         self.epoch = 0
         self.pos = 0  # batch index within the current epoch
+        self.yield_indices = yield_indices
         self._pool = (concurrent.futures.ThreadPoolExecutor(num_workers)
                       if num_workers > 0 else None)
 
@@ -96,6 +103,8 @@ class Batcher:
 
     def _assemble(self, order: np.ndarray, b: int) -> np.ndarray:
         idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
+        if self.yield_indices:
+            return idxs.astype(np.int32)
         getter = (self.dataset.snippet_int16 if self.transfer_dtype == "int16"
                   else self.dataset.__getitem__)
         if self._pool is not None:
@@ -158,3 +167,24 @@ class Batcher:
     def close(self) -> None:
         if self._pool is not None:
             self._pool.shutdown(wait=False)
+
+
+def load_device_corpus(dataset: SnippetDataset, device,
+                       budget_bytes: int = 4 << 30) -> torch.Tensor:
+    """Every snippet of `dataset` as one (N, S) int16 tensor on `device`,
+    uploaded in one copy, for the device_corpus step to index. Raises when
+    the corpus exceeds `budget_bytes`: the card's memory also holds the
+    parameters, gradients, optimizer state and activations."""
+    n = len(dataset)
+    s = len(dataset.snippet_int16(0))
+    total = n * s * 2
+    if total > budget_bytes:
+        raise ValueError(
+            f"device_corpus: corpus is {total / 2**30:.2f} GiB "
+            f"({n} snippets x {s} samples) > the {budget_bytes / 2**30:.0f} "
+            "GiB HBM budget; use the host streaming path (or a packed "
+            "memmap corpus) instead")
+    host = np.empty((n, s), np.int16)
+    for i in range(n):
+        host[i] = dataset.snippet_int16(i)
+    return torch.from_numpy(host).to(device)

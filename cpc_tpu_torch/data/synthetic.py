@@ -1,14 +1,17 @@
 """Synthetic corpora: a numpy copy of `cpc_tpu/data/synthetic.py`.
 
-Two of its layouts, the ones the training CLI writes:
+Three layouts:
   * LibriSpeech-style speech: `<root>/<speaker>/<chapter>/<utt>.wav` with
     per-speaker harmonic profiles and phone-like segments, and a sibling
     `<utt>.phones.npy` of per-sample phone labels;
+  * `dynamics` speech: the same layout, but a speaker differs from another
+    only in its phone-transition Markov dynamics (every speaker's
+    stationary distribution is uniform and the voice is shared), so the
+    speaker probe measures learned temporal structure;
   * MAESTRO-style music: `<root>/<year>/<piece>.wav` of random note
     sequences with piano-like envelopes.
 The same seed gives byte-identical files from both packages
-(tests/test_torch_port_data.py). The `dynamics` speech layout waits
-(ROADMAP.md §A8).
+(tests/test_torch_port_data.py, tests/test_torch_port_feed.py).
 """
 
 from __future__ import annotations
@@ -68,6 +71,49 @@ def _synth_from_labels(rng: np.random.Generator, labels: np.ndarray,
     return wave.astype(np.float32)
 
 
+def speaker_transition_matrices(num_speakers: int, rng: np.random.Generator,
+                                alpha: float = 0.75) -> np.ndarray:
+    """(num_speakers, P, P) Markov transition matrices, one per speaker,
+    each `alpha * permutation + (1-alpha) * uniform`.
+
+    Every matrix is doubly stochastic, so the stationary distribution over
+    phones is UNIFORM for every speaker: time-pooled phone statistics (and
+    hence pooled frame spectra, in expectation) carry no speaker identity —
+    only the transition *dynamics* do. Distinct DERANGEMENTS (permutations
+    without fixed points — a fixed point is a self-transition, which merely
+    extends a segment and carries no observable transition signal) keep
+    speakers well separated; 5 phones give 44 of them."""
+    import itertools
+    perms = [p for p in itertools.permutations(range(NUM_PHONES))
+             if all(i != j for i, j in enumerate(p))]
+    if num_speakers > len(perms):
+        raise ValueError(
+            f"at most {len(perms)} dynamics speakers with {NUM_PHONES} phones")
+    chosen = rng.permutation(len(perms))[:num_speakers]
+    mats = np.empty((num_speakers, NUM_PHONES, NUM_PHONES))
+    for s, ci in enumerate(chosen):
+        pm = np.zeros((NUM_PHONES, NUM_PHONES))
+        for i, j in enumerate(perms[ci]):
+            pm[i, j] = 1.0
+        mats[s] = alpha * pm + (1.0 - alpha) / NUM_PHONES
+    return mats
+
+
+def _dynamics_labels(rng: np.random.Generator, n_samples: int, sr: int,
+                     trans: np.ndarray) -> np.ndarray:
+    """Phone labels sampled from the Markov chain `trans` with ~90-150 ms
+    segments (length jitter shared across speakers)."""
+    labels = np.empty(n_samples, np.int32)
+    state = int(rng.integers(0, NUM_PHONES))
+    pos = 0
+    while pos < n_samples:
+        seg = int(sr * rng.uniform(0.09, 0.15))
+        labels[pos:pos + seg] = state
+        pos += seg
+        state = int(rng.choice(NUM_PHONES, p=trans[state]))
+    return labels
+
+
 def generate_synthetic_corpus(
     root: str,
     *,
@@ -104,6 +150,33 @@ def generate_synthetic_corpus(
                 paths.append(p)
         with open(os.path.join(root, "speakers.json"), "w") as f:
             json.dump(meta, f)
+    elif style == "dynamics":
+        # Speaker identity lives ONLY in phone-transition dynamics: all
+        # speakers share the phone inventory and the f0/formant distribution
+        # (drawn per UTTERANCE), and every transition matrix has a uniform
+        # stationary distribution (speaker_transition_matrices docstring).
+        # A linear probe on time-pooled features of a random encoder sits
+        # near chance here; only a context representation that has learned
+        # the per-speaker transition structure separates speakers — which is
+        # exactly what CPC pretraining is supposed to produce.
+        mats = speaker_transition_matrices(num_speakers, rng)
+        meta = {}
+        for spk in range(num_speakers):
+            meta[str(spk)] = {"transition": mats[spk].round(4).tolist()}
+            d = os.path.join(root, f"{spk}", "0")
+            os.makedirs(d, exist_ok=True)
+            for utt in range(files_per_speaker):
+                f0 = float(rng.uniform(100, 220))  # shared dist, per-utt
+                labels = _dynamics_labels(rng, n_samples, sample_rate,
+                                          mats[spk])
+                wave = _synth_from_labels(rng, labels, sample_rate, f0, 1.0)
+                p = os.path.join(d, f"{spk}-0-{utt:04d}.wav")
+                write_wav(p, wave, sample_rate)
+                if write_labels:
+                    np.save(p.replace(".wav", ".phones.npy"), labels)
+                paths.append(p)
+        with open(os.path.join(root, "speakers.json"), "w") as f:
+            json.dump(meta, f)
     elif style == "music":
         for piece in range(num_speakers * files_per_speaker):
             d = os.path.join(root, "2019")
@@ -112,10 +185,6 @@ def generate_synthetic_corpus(
             p = os.path.join(d, f"piece_{piece:04d}.wav")
             write_wav(p, wave, sample_rate)
             paths.append(p)
-    elif style == "dynamics":
-        raise NotImplementedError(
-            "the 'dynamics' synthetic corpus is not ported yet "
-            "(ROADMAP.md §A8)")
     else:
         raise ValueError(f"unknown style {style!r}")
     return paths

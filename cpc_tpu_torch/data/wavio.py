@@ -1,10 +1,12 @@
-"""WAV read and write in numpy.
+"""WAV read and write in numpy, and the one definition of "load a file".
 
 A copy of `cpc_tpu/data/wavio.py` (`read_wav`, `wav_info`, `write_wav`) and
-of the WAV branch of `cpc_tpu/data/dataset.py::decode_mono`: the port cannot
+of `cpc_tpu/data/dataset.py::decode` and `decode_mono`: the port cannot
 import `cpc_tpu.data` without jax. RIFF/WAVE, PCM 8/16/24/32-bit and IEEE
-float 32/64, any channel count (averaged to mono by `decode_mono`). FLAC and
-resampling wait (ROADMAP.md §A8); they raise here.
+float 32/64, and FLAC through `data.flac`; any channel count (averaged to
+mono by `decode_mono`). A file at another rate than the target is
+resampled once, at decode, by `ops.dsp.resample` on the device the caller
+names, as the JAX package resamples on its default device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ import struct
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from cpc_tpu_torch.data.flac import flac_info, read_flac
+from cpc_tpu_torch.ops.dsp import resample
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -143,16 +149,30 @@ def _raw_arr(raw: bytes, dtype) -> np.ndarray:
     return np.frombuffer(raw[: (len(raw) // item) * item], dtype=dtype)
 
 
-def decode_mono(path: str, target_rate: int) -> Tuple[np.ndarray, int]:
-    """(float32 mono waveform, native rate) of a WAV file at target_rate."""
+DECODERS = {".wav": read_wav, ".flac": read_flac}
+# header-only (num_samples, native_rate) probes: no sample is decoded
+INFOS = {".wav": wav_info, ".flac": flac_info}
+
+
+def decode(path: str) -> Tuple[np.ndarray, int]:
+    """(samples (T, C) float32 in [-1, 1], native rate) of a WAV or FLAC
+    file."""
     ext = os.path.splitext(path)[1].lower()
-    if ext != ".wav":
-        raise NotImplementedError(f"{path}: the port decodes WAV only; FLAC "
-                                  f"waits (ROADMAP.md §A8)")
-    audio, sr = read_wav(path)
-    if sr != target_rate:
-        raise NotImplementedError(
-            f"{path}: {sr} Hz != {target_rate} Hz; resampling is not ported "
-            f"yet (ROADMAP.md §A8)")
+    if ext not in DECODERS:
+        raise ValueError(f"no decoder for {ext!r} ({path}); "
+                         f"have {sorted(DECODERS)}")
+    return DECODERS[ext](path)
+
+
+def decode_mono(path: str, target_rate: int, device="cuda"
+                ) -> Tuple[np.ndarray, int]:
+    """(float32 mono waveform at target_rate, native rate). The channels
+    are averaged first; a file at another rate is then resampled on
+    `device`, which is touched only then."""
+    audio, sr = decode(path)
     x = audio.mean(axis=1) if audio.shape[1] > 1 else audio[:, 0]
-    return np.ascontiguousarray(x, dtype=np.float32), sr
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    if sr != target_rate:
+        t = torch.from_numpy(x[None]).to(device)
+        x = resample(t, sr, target_rate)[0].cpu().numpy()
+    return x, sr

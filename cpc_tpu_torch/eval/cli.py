@@ -13,9 +13,11 @@ Without `--extract` the CLI probes the frozen model: `--probe
 speaker|phone|both` prints the probes' results, `--battery` the full
 battery's row (`eval.battery.probe_milestone`). `--data synthetic` (the
 default) probes the corpus under `<workdir>/synthetic_corpus`, written
-there on first use as the JAX CLI writes it. `--device cuda` (the default)
-on a machine without a GPU raises. `--packed` waits for ROADMAP.md A8, the
-`--export-*` flags for A9: each is accepted and raises.
+there on first use as the JAX CLI writes it; `--packed` reads `--data` as
+a packed corpus (`data.packed`). `--device cuda` (the default) on a
+machine without a GPU raises; files at another rate than the config's are
+resampled on it. The `--export-*` flags wait for ROADMAP.md A9: each is
+accepted and raises.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from cpc_tpu_torch.config import CPCConfig, from_dict, presets
 from cpc_tpu_torch.data.dataset import ProbeDataset
+from cpc_tpu_torch.data.packed import PackedSnippetDataset
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
 from cpc_tpu_torch.data.wavio import decode_mono
 from cpc_tpu_torch.eval.battery import probe_milestone
@@ -87,8 +90,8 @@ def main(argv=None) -> int:
     p.add_argument("--probe", default="both",
                    choices=["speaker", "phone", "both"])
     p.add_argument("--packed", action="store_true",
-                   help="--data is a pre-decoded memmap corpus (not ported "
-                        "yet: ROADMAP.md A8)")
+                   help="--data is a packed corpus (python -m "
+                        "cpc_tpu_torch.data.pack)")
     p.add_argument("--feature", default="c", choices=["c", "z"])
     p.add_argument("--split", default="snippet", choices=["snippet", "file"],
                    help="probe train/eval split (speaker AND phone). 'file' "
@@ -130,10 +133,6 @@ def main(argv=None) -> int:
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
 
-    if args.packed:
-        raise NotImplementedError(
-            "--packed (the pre-decoded memmap corpus) is not ported yet: "
-            "ROADMAP.md A8")
     if args.export_streams != 1 or any(getattr(args, f) is not None
                                        for f in _EXPORT_FLAGS):
         raise NotImplementedError(
@@ -163,7 +162,7 @@ def main(argv=None) -> int:
     model.to(device).eval()
 
     if args.extract:
-        wave, _ = decode_mono(args.extract, cfg.data.sample_rate)
+        wave, _ = decode_mono(args.extract, cfg.data.sample_rate, device)
         z, c = extract_features(model, wave, window=cfg.data.snippet_samples,
                                 hop=args.hop, normalize=cfg.data.normalize)
         out = args.out or args.extract + ".features.npz"
@@ -182,8 +181,13 @@ def main(argv=None) -> int:
                                       seconds_per_file=4.0, seed=0)
     else:
         corpus = args.data
-    ds = ProbeDataset(corpus, cfg.data.snippet_samples,
-                      cfg.data.snippet_samples, cfg.data.sample_rate)
+    d = cfg.data
+    if args.packed:
+        ds = PackedSnippetDataset(corpus, d.snippet_samples,
+                                  d.snippet_samples, d.sample_rate)
+    else:
+        ds = ProbeDataset(corpus, d.snippet_samples, d.snippet_samples,
+                          d.sample_rate, device=device)
 
     if args.battery:
         row = {"checkpoint_step": step,

@@ -1,2 +1,2 @@
-"""Training of the PyTorch port: step, optimizer, trainer, checkpoints and
-the `python -m cpc_tpu_torch.train` CLI."""
+"""Training of the PyTorch port: step, optimizer, trainer, checkpoints,
+metrics, the supervisor and the `python -m cpc_tpu_torch.train` CLI."""

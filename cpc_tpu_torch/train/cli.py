@@ -14,8 +14,22 @@ model.encoder.scalogram_scale=mel|log|cqt`), for music audio best on
 `baseline`; the dedicated flags override it, and `--set path=value`
 overrides last.
 `--data synthetic` (or `synthetic-music`) writes a seeded corpus under the
-workdir on first use, as the JAX CLI does. `--device` defaults to cuda and
-raises where there is no GPU.
+workdir on first use, as the JAX CLI does; otherwise `--data` is a
+directory of WAV and FLAC files (any rate: resampled on `--device` when
+decoded), or with `--packed` a corpus packed by `python -m
+cpc_tpu_torch.data.pack`. `--device` defaults to cuda and raises where
+there is no GPU.
+
+The data feed and the side features, with the JAX CLI's flags:
+`--device-corpus` uploads the int16 corpus to the card once and gathers
+each batch there; `--augment` augments each batch on the card (gain,
+polarity, shift, noise); `--supervise [--stale-after S] [--max-restarts
+N]` runs the same command as a child process and restarts it with
+`--resume` after a crash or a hang (`train.supervisor`; dispatched before
+any CUDA use); `--profile` writes a torch.profiler Chrome trace of the
+run under `<workdir>/profile`; `--nan-debug` raises FloatingPointError at
+the first non-finite loss or gradient (`utils.profiling`). TensorBoard
+scalars go to `<workdir>/tb`.
 
 Data parallelism (`dp_global_negatives`, or any preset): one process a
 card, each given the same command and its rank, either
@@ -28,13 +42,12 @@ RANK and WORLD_SIZE (torchrun). Each rank trains on its rows of the global
 `--batch-size`; NCCL on cuda, gloo with `--device cpu` (a rehearsal on CPU
 processes). The workdir is shared: rank 0 alone writes it (the synthetic
 corpus, then a barrier; config, metrics, checkpoints), every rank reads it.
-Not offered yet (ROADMAP.md A7, A8): --packed, --augment, --device-corpus,
---supervise, --profile and --nan-debug.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -43,9 +56,12 @@ import torch
 
 from cpc_tpu_torch.config import apply_overrides, from_dict, presets
 from cpc_tpu_torch.data.dataset import SnippetDataset
+from cpc_tpu_torch.data.packed import PackedSnippetDataset
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
 from cpc_tpu_torch.parallel import multihost
+from cpc_tpu_torch.train import supervisor
 from cpc_tpu_torch.train.trainer import Trainer
+from cpc_tpu_torch.utils.profiling import enable_nan_debug, trace
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -59,15 +75,25 @@ def build_argparser() -> argparse.ArgumentParser:
                         "config.json")
     p.add_argument("--data", default="synthetic",
                    help="'synthetic', 'synthetic-music', or a corpus "
-                        "directory of WAV files")
+                        "directory of WAV and FLAC files")
     p.add_argument("--val-data", default=None,
                    help="validation corpus directory (defaults to --data)")
+    p.add_argument("--packed", action="store_true",
+                   help="--data/--val-data are packed corpora (python -m "
+                        "cpc_tpu_torch.data.pack): no decode while training")
     p.add_argument("--workdir", default="runs/default")
     p.add_argument("--steps", type=int, default=None,
                    help="override train.num_steps")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--snippet-samples", type=int, default=None,
                    help="override data.snippet_samples")
+    p.add_argument("--augment", action="store_true",
+                   help="on-device waveform augmentation (gain, polarity, "
+                        "shift, noise) inside the step")
+    p.add_argument("--device-corpus", action="store_true",
+                   help="upload the whole int16 corpus to the card once and "
+                        "feed each step its (B,) index vector (the gather "
+                        "runs on the card); the corpus must fit the budget")
     p.add_argument("--lr-schedule", default=None,
                    choices=["constant", "cosine"],
                    help="override train.lr_schedule")
@@ -78,7 +104,31 @@ def build_argparser() -> argparse.ArgumentParser:
                         "optimizer step, each its own negative pool)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest checkpoint in the workdir")
+    p.add_argument("--supervise", action="store_true",
+                   help="run training as a supervised child process: after "
+                        "a crash (nonzero exit) or a hang (workdir heartbeat "
+                        "stale for --stale-after) the child is terminated "
+                        "and relaunched with --resume; the restart budget "
+                        "counts consecutive restarts without a new "
+                        "checkpoint")
+    p.add_argument("--stale-after", type=float,
+                   default=supervisor.DEFAULT_STALE_AFTER,
+                   help="seconds of workdir silence (no metrics.jsonl or "
+                        "checkpoint write) before a supervised child is "
+                        "declared hung; must exceed the longest quiet "
+                        "period (kernel build, validation)")
+    p.add_argument("--max-restarts", type=int,
+                   default=supervisor.DEFAULT_MAX_RESTARTS,
+                   help="consecutive no-progress restarts before the "
+                        "supervisor gives up")
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--profile", action="store_true",
+                   help="record the run with torch.profiler; a Chrome trace "
+                        "goes to <workdir>/profile")
+    p.add_argument("--nan-debug", action="store_true",
+                   help="autograd anomaly mode; the first non-finite loss "
+                        "or gradient raises FloatingPointError naming the "
+                        "step")
     p.add_argument("--set", action="append", default=[], metavar="PATH=VAL",
                    dest="overrides",
                    help="override any config field by dotted path, e.g. "
@@ -128,7 +178,9 @@ def resolve_config(args):
                                ("accum_steps", args.accum_steps))
              if v is not None}
     data = {k: v for k, v in (("batch_size", args.batch_size),
-                              ("snippet_samples", args.snippet_samples))
+                              ("snippet_samples", args.snippet_samples),
+                              ("augment", args.augment or None),
+                              ("device_corpus", args.device_corpus or None))
             if v is not None}
     cfg = dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, **train),
@@ -139,6 +191,9 @@ def resolve_config(args):
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     check_distributed_args(args)
+    if args.supervise:
+        # the same command, without the supervisor's flags, as a child
+        return supervisor.supervise_cli(args, argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device here")
@@ -172,10 +227,17 @@ def _train(args, cfg, device, mesh) -> int:
         corpus = args.data
     val_corpus = args.val_data or corpus
     d = cfg.data
-    train_ds = SnippetDataset(corpus, d.snippet_samples, d.snippet_stride,
-                              d.sample_rate)
-    val_ds = SnippetDataset(val_corpus, d.snippet_samples, d.snippet_samples,
-                            d.sample_rate)
+    if args.packed:
+        train_ds = PackedSnippetDataset(corpus, d.snippet_samples,
+                                        d.snippet_stride, d.sample_rate)
+        val_ds = PackedSnippetDataset(val_corpus, d.snippet_samples,
+                                      d.snippet_samples, d.sample_rate)
+    else:
+        train_ds = SnippetDataset(corpus, d.snippet_samples, d.snippet_stride,
+                                  d.sample_rate, device=device)
+        val_ds = SnippetDataset(val_corpus, d.snippet_samples,
+                                d.snippet_samples, d.sample_rate,
+                                device=device)
 
     trainer = Trainer(cfg, train_ds, val_ds, workdir=args.workdir,
                       device=device, mesh=mesh)
@@ -189,7 +251,13 @@ def _train(args, cfg, device, mesh) -> int:
             print(f"config={cfg.name} device={device} "
                   f"processes={1 if mesh is None else mesh.size} "
                   f"batch={cfg.data.batch_size} steps={cfg.train.num_steps}")
-        trainer.train()
+        if args.nan_debug:
+            enable_nan_debug()
+        with (trace(os.path.join(args.workdir, "profile")) if args.profile
+              else contextlib.nullcontext()):
+            trainer.train()
     finally:
+        if args.nan_debug:
+            enable_nan_debug(False)
         trainer.close()
     return 0

@@ -23,7 +23,20 @@ anew for every microbatch of every step and seeded from `train.seed` and
 the optimizer's step count (`dropout_generator`), as the JAX trainer folds
 the step into its key, and from the rank, as the JAX step folds in
 `axis_index`. The count is part of the checkpoint, so a resumed run draws
-what the straight run draws. Evaluation never drops.
+what the straight run draws. Evaluation never drops. On-device augmentation
+(`data.augment`, `ops.dsp.augment_waveform`, after `prepare_waveform`)
+draws from a generator of its own, seeded the same way by another formula
+(`augment_generator`), so that turning it on leaves the dropout draws as
+they were; evaluation never augments.
+
+With `data.device_corpus` the steps take `(corpus, idx)`: the (N, S)
+int16 corpus on the device and this step's (B,) snippet indices, and
+gather the batch's rows there; the rest of the step is the same.
+
+Under nan-debug (`utils.profiling.enable_nan_debug`, which turns on
+autograd's anomaly mode) the train step checks its loss after the forward
+and its gradients after the backward, and raises FloatingPointError at the
+first non-finite value, naming the step and the pass.
 
 With a `mesh` (`parallel.mesh.ProcessMesh`) the step is data-parallel, as
 `cpc_tpu/parallel/dp.py` has it: each rank steps on its rows of the global
@@ -31,9 +44,8 @@ batch, gathers the latents of every rank into its candidate pool when
 `loss.cross_replica` (each microbatch its own gathered pool), and averages
 gradients and metrics over the ranks before grad_norm and the update, so
 the update is the single-device step on the global batch. A mesh of one
-rank runs the same collectives. Context and tensor parallelism,
-`loss.ring`, `device_corpus` and `augment` raise, naming their ROADMAP.md
-items (`check_supported`).
+rank runs the same collectives. Context and tensor parallelism and
+`loss.ring` raise, naming their ROADMAP.md item (`check_supported`).
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ import torch
 from cpc_tpu_torch.config import CPCConfig, TrainConfig
 from cpc_tpu_torch.data.loader import device_prepare
 from cpc_tpu_torch.models.cpc import CPCModel
+from cpc_tpu_torch.ops.dsp import augment_waveform
 from cpc_tpu_torch.ops.infonce import infonce_loss_and_metrics
 from cpc_tpu_torch.ops.infonce_fused import fused_heads_infonce
 from cpc_tpu_torch.parallel.dp import average, dp_eval_step, dp_train_step
@@ -53,8 +66,9 @@ from cpc_tpu_torch.parallel.mesh import mesh_size
 
 
 class StepFns(NamedTuple):
-    train_step: Callable  # batch -> metrics; updates the model in place
-    eval_step: Callable   # batch -> metrics
+    # batch -> metrics, or (corpus, idx) -> metrics under data.device_corpus
+    train_step: Callable  # updates the model in place
+    eval_step: Callable
     optimizer: "Optimizer"
     loss_fn: Callable     # (model, batch) -> (loss, metrics)
 
@@ -170,12 +184,6 @@ def check_supported(cfg: CPCConfig, mesh=None) -> None:
         raise ValueError(
             f"batch_size {d.batch_size} is not divisible by the {world}-way "
             f"data axis; pass a compatible mesh= or adjust data.batch_size")
-    if d.device_corpus:
-        raise NotImplementedError("data.device_corpus is not ported yet "
-                                  "(ROADMAP.md A8)")
-    if d.augment:
-        raise NotImplementedError("data.augment (on-device augmentation) is "
-                                  "not ported yet (ROADMAP.md A7)")
     if t.accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {t.accum_steps}")
 
@@ -197,6 +205,37 @@ def dropout_generator(seed: int, count: int, microbatch: int, device,
     return torch.Generator(device=device).manual_seed(mixed % (1 << 63))
 
 
+def augment_generator(seed: int, count: int, microbatch: int, device,
+                      rank: int = 0) -> torch.Generator:
+    """The augmentation draws of microbatch `microbatch` of optimizer step
+    `count` on rank `rank`: a function of (train.seed, count, microbatch,
+    rank) alone, by another mix than `dropout_generator`'s, so the two
+    streams differ."""
+    mixed = ((seed + 0x5EED) * 0xBF58476D1CE4E5B9 + count * 2_000_029
+             + microbatch * 7_919 + rank * 0x94D049BB133111EB)
+    return torch.Generator(device=device).manual_seed(mixed % (1 << 63))
+
+
+def _nan_raise(what: str, step: int, where: str) -> None:
+    raise FloatingPointError(f"nan-debug: non-finite {what} at step {step}, "
+                             f"in the {where}")
+
+
+def _checked_backward(loss: torch.Tensor, step: int) -> None:
+    """loss.backward() under nan-debug: a non-finite loss raises before it,
+    and anomaly mode's NaN report from a backward function raises as
+    FloatingPointError."""
+    if not torch.isfinite(loss):
+        _nan_raise("loss", step, "forward")
+    try:
+        loss.backward()
+    except RuntimeError as e:
+        if "nan" not in str(e).lower():
+            raise
+        raise FloatingPointError(f"nan-debug: non-finite value at step "
+                                 f"{step}, in the backward: {e}") from e
+
+
 def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
     """The train and eval steps of `model`; with a `mesh`, data-parallel
     over its ranks (each step takes this rank's rows)."""
@@ -208,13 +247,20 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
     accum = cfg.train.accum_steps
     params = dict(model.named_parameters())
     dropout = cfg.model.ar.kind == "transformer" and cfg.model.ar.dropout > 0
+    d = cfg.data
 
     def loss_fn(model: CPCModel, batch: torch.Tensor, generator=None,
-                mesh=None):
+                mesh=None, augment=None):
         """(loss, metrics). With a `generator` (and ar.dropout > 0) the
-        transformer's dropout is live and draws from it; with a `mesh` and
-        loss.cross_replica the candidate pool is every rank's latents."""
+        transformer's dropout is live and draws from it; with an `augment`
+        generator the prepared waveform is augmented with its draws; with a
+        `mesh` and loss.cross_replica the candidate pool is every rank's
+        latents."""
         x = device_prepare(batch, normalize=normalize)
+        if augment is not None:
+            x = augment_waveform(x, augment, gain_db=d.augment_gain_db,
+                                 noise_snr_db=d.augment_noise_snr_db,
+                                 shift_max=d.augment_shift_max)
         train = dropout and generator is not None
         pool_mesh = mesh if loss_cfg.cross_replica else None
         if fuse_heads:
@@ -243,13 +289,19 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
         for p in params.values():
             p.grad = None
         rank = 0 if mesh is None else mesh.rank
+        nan_debug = torch.is_anomaly_enabled()
         per_mb = []
         mbs = batch.reshape(accum, B // accum, *batch.shape[1:])
         for i, mb in enumerate(mbs):
             gen = dropout_generator(cfg.train.seed, opt.count, i,
                                     batch.device, rank) if dropout else None
-            loss, metrics = loss_fn(model, mb, gen, mesh)
-            loss.backward()
+            aug = augment_generator(cfg.train.seed, opt.count, i,
+                                    batch.device, rank) if d.augment else None
+            loss, metrics = loss_fn(model, mb, gen, mesh, aug)
+            if nan_debug:
+                _checked_backward(loss, opt.count + 1)
+            else:
+                loss.backward()
             per_mb.append({k: v.detach() for k, v in metrics.items()})
         grads = {k: p.grad for k, p in params.items()}
         if accum > 1:
@@ -259,6 +311,8 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
         if mesh is not None:
             grads, metrics = _averaged(grads, metrics, mesh)
         metrics["grad_norm"] = global_norm(grads.values())
+        if nan_debug and not torch.isfinite(metrics["grad_norm"]):
+            _nan_raise("gradient", opt.count + 1, "backward")
         opt.step(grads)
         return metrics
 
@@ -268,6 +322,15 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
         if mesh is not None:
             metrics = _averaged({}, metrics, mesh)[1]
         return metrics
+
+    if d.device_corpus:
+        batch_train, batch_eval = train_step, eval_step
+
+        def train_step(corpus: torch.Tensor, idx: torch.Tensor, mesh=None):
+            return batch_train(corpus.index_select(0, idx), mesh)
+
+        def eval_step(corpus: torch.Tensor, idx: torch.Tensor, mesh=None):
+            return batch_eval(corpus.index_select(0, idx), mesh)
 
     if mesh is not None:
         train_step = dp_train_step(train_step, mesh)

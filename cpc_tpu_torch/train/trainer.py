@@ -17,8 +17,17 @@ SIGTERM flags agreed on at every step (`multihost.any_true`), so that all
 save at the same step. Rank 0 alone writes the workdir (config.json,
 metrics.jsonl, checkpoints; a barrier follows each save); every rank
 restores from it. `audio_sec_per_sec` counts the global batch. The
-supervisor and the parallel modes beyond data parallelism wait
-(ROADMAP.md A7, A10).
+parallel modes beyond data parallelism wait (ROADMAP.md A10).
+
+Under `data.device_corpus` the trainer uploads the training corpus to its
+card once (`data.loader.load_device_corpus`; every rank its own copy under
+data parallelism), the Batcher yields index vectors in the same order, and
+the trainer stages this rank's indices (`multihost.shard_batch`) instead of
+its rows of the batch: the step gathers the same rows on the card. The
+validation corpus reuses the training corpus when both index the same
+snippets. Metrics go to metrics.jsonl and to TensorBoard under
+`<workdir>/tb` (`train.metrics`). Supervision (`train.supervisor`),
+profiling and nan-debug (`utils.profiling`) wrap `train()` from the CLI.
 """
 
 from __future__ import annotations
@@ -34,7 +43,8 @@ import torch
 
 from cpc_tpu_torch.config import CPCConfig, to_dict
 from cpc_tpu_torch.data.dataset import SnippetDataset
-from cpc_tpu_torch.data.loader import Batcher, to_device
+from cpc_tpu_torch.data.loader import (Batcher, load_device_corpus,
+                                      to_device)
 from cpc_tpu_torch.parallel import multihost
 from cpc_tpu_torch.train.checkpoint import CheckpointManager
 from cpc_tpu_torch.train.metrics import MetricWriter
@@ -61,16 +71,24 @@ class Trainer:
         self.steps = make_step_fns(cfg, self.model, mesh)
         if mesh is not None:
             multihost.replicate(self._state_tensors(), mesh)
+        dc = cfg.data.device_corpus
+        self._corpus = (load_device_corpus(train_dataset, self.device)
+                        if dc else None)
         self.batcher = Batcher(
             train_dataset, cfg.data.batch_size, shuffle=cfg.data.shuffle,
             seed=cfg.train.seed, prefetch=cfg.data.prefetch,
             transfer_dtype=cfg.data.transfer_dtype,
-            num_workers=cfg.data.num_workers)
+            num_workers=cfg.data.num_workers, yield_indices=dc)
         self.val_batcher = None
+        self._val_corpus = None
         if val_dataset is not None:
+            if dc:
+                self._val_corpus = (
+                    self._corpus if _same_snippets(val_dataset, train_dataset)
+                    else load_device_corpus(val_dataset, self.device))
             self.val_batcher = Batcher(
                 val_dataset, cfg.data.batch_size, shuffle=False, seed=0,
-                transfer_dtype=cfg.data.transfer_dtype)
+                transfer_dtype=cfg.data.transfer_dtype, yield_indices=dc)
         main = multihost.is_main(mesh)
         self.writer = MetricWriter(workdir if main else None, echo=main)
         self.ckpt = (CheckpointManager(
@@ -153,7 +171,8 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def _stage(self, host_batch) -> torch.Tensor:
-        """This rank's rows of a host batch, on its device."""
+        """This rank's rows of a host batch (or of an index vector), on its
+        device."""
         return to_device(multihost.shard_batch(host_batch, self.mesh),
                          self.device)
 
@@ -175,7 +194,9 @@ class Trainer:
         t_log, since_log = time.perf_counter(), 0
         while self.step < total:
             _, _, host_batch = next(it)
-            metrics = self.steps.train_step(self._stage(host_batch))
+            staged = self._stage(host_batch)
+            metrics = (self.steps.train_step(staged) if self._corpus is None
+                       else self.steps.train_step(self._corpus, staged))
             self.step += 1
             since_log += 1
             end = self.step == total
@@ -214,7 +235,9 @@ class Trainer:
         for i, (_, _, host_batch) in enumerate(self.val_batcher.one_epoch()):
             if i >= max_batches:
                 break
-            m = self.steps.eval_step(self._stage(host_batch))
+            staged = self._stage(host_batch)
+            m = (self.steps.eval_step(staged) if self._val_corpus is None
+                 else self.steps.eval_step(self._val_corpus, staged))
             for k, v in m.items():
                 agg[k] = agg.get(k, 0.0) + v.float().cpu()
             n += 1
@@ -225,3 +248,11 @@ class Trainer:
         self.batcher.close()
         if self.val_batcher is not None:
             self.val_batcher.close()
+
+
+def _same_snippets(a, b) -> bool:
+    """True when datasets a and b index the same snippets: the same object,
+    or the same kind over the same files at the same snippet geometry."""
+    return a is b or (type(a) is type(b) and a.files == b.files
+                      and a.snippet_samples == b.snippet_samples
+                      and a.snippet_stride == b.snippet_stride)

@@ -44,8 +44,13 @@ def test_synthetic_corpus_is_byte_identical(tmp_path, style):
 
 
 def test_dynamics_style_waits(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        generate_synthetic_corpus(str(tmp_path), style="dynamics")
+    # the dynamics style, which raised before it was ported, writes the
+    # JAX package's files byte for byte (more seeds and sizes in
+    # tests/test_torch_port_feed.py)
+    a, b = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_generate(a, style="dynamics", **KW)
+    generate_synthetic_corpus(b, style="dynamics", **KW)
+    assert _files(a) == _files(b)
 
 
 @pytest.fixture(scope="module")

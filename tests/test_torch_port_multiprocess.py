@@ -332,7 +332,10 @@ def test_cli_rank_zero_alone_writes_the_workdir(two_rank_run):
     assert "config=dp_global_negatives device=cpu processes=2" in outs[0]
     assert not [line for line in outs[1].splitlines() if line.strip()]
     names = sorted(os.listdir(wd))
-    assert names == ["checkpoints", "config.json", "metrics.jsonl"], names
+    assert names == ["checkpoints", "config.json", "metrics.jsonl",
+                     "tb"], names
+    # one TensorBoard event file: rank 0's
+    assert len(os.listdir(os.path.join(wd, "tb"))) == 1
     assert not [n for n in os.listdir(os.path.join(wd, "checkpoints"))
                 if not n.endswith(".pt")]
     with open(os.path.join(wd, "config.json")) as f:

@@ -403,8 +403,7 @@ def test_cli_probes_jax_params_npz(setup, tmp_path, capsys):
 
 
 def test_cli_unported_flags_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
-        eval_cli.main(["--workdir", str(tmp_path), "--packed"])
+    # --packed no longer raises (tests/test_torch_port_feed.py runs it)
     for flag in (["--export-model", "m"], ["--export-streams", "2"],
                  ["--export-stats", "0", "1"]):
         with pytest.raises(NotImplementedError, match="A9"):

@@ -249,7 +249,10 @@ SLICE_MODULES = [
     "cpc_tpu_torch.train.trainer", "cpc_tpu_torch.train.cli",
     "cpc_tpu_torch.train.__main__", "cpc_tpu_torch.parallel",
     "cpc_tpu_torch.parallel.mesh", "cpc_tpu_torch.parallel.multihost",
-    "cpc_tpu_torch.parallel.dp"]
+    "cpc_tpu_torch.parallel.dp", "cpc_tpu_torch.data.flac",
+    "cpc_tpu_torch.data.flac_encoder", "cpc_tpu_torch.data.packed",
+    "cpc_tpu_torch.data.pack", "cpc_tpu_torch.train.supervisor",
+    "cpc_tpu_torch.utils", "cpc_tpu_torch.utils.profiling"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cpc_tpu")
 
 

@@ -163,19 +163,42 @@ def test_eval_step_matches_loss_fn_and_leaves_params():
         torch.testing.assert_close(v, before[k], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(train=dict(parallel="cp")), "A10"),
-    (dict(train=dict(mesh_shape=(2, 2))), "A10"),
-    (dict(data=dict(device_corpus=True)), "A8"),
-    (dict(data=dict(augment=True)), "A7"),
-])
-def test_unported_training_modes_raise(change, match):
+def _changed(change):
     cfg = tcfg.from_dict(jcfg.to_dict(_cfg()))
     for section, fields in change.items():
         cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
             getattr(cfg, section), **fields)})
+    return cfg
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(train=dict(parallel="cp")), "A10"),
+    (dict(train=dict(mesh_shape=(2, 2))), "A10"),
+])
+def test_unported_training_modes_raise(change, match):
+    cfg = _changed(change)
     with pytest.raises(NotImplementedError, match=match):
         make_step_fns(cfg, CPCModel(cfg.model))
+
+
+@pytest.mark.parametrize("change", [dict(data=dict(device_corpus=True)),
+                                    dict(data=dict(augment=True))])
+def test_device_corpus_and_augment_modes_run(change):
+    # the two modes that raised before the data feed was ported: a step on
+    # each changes the parameters and gives finite metrics
+    # (tests/test_torch_port_train_features.py holds them exactly)
+    cfg = _changed(change)
+    model = CPCModel(cfg.model, generator=torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    steps = make_step_fns(cfg, model)
+    batch = torch.from_numpy(_batches(1)[0])
+    if cfg.data.device_corpus:
+        m = steps.train_step(batch, torch.arange(BATCH - 1, -1, -1))
+    else:
+        m = steps.train_step(batch)
+    assert all(bool(torch.isfinite(v).all()) for v in m.values())
+    assert any(not torch.equal(v, before[k])
+               for k, v in model.state_dict().items())
 
 
 def test_unfused_pallas_loss_raises_and_plain_loss_runs():

@@ -1,5 +1,6 @@
 """The port's numpy WAV decode (cpc_tpu_torch/data/wavio.py) against the
-JAX package's `read_wav` / `decode_mono` on the same files."""
+JAX package's `read_wav` / `decode_mono` on the same files; `decode_mono`
+also over FLAC and across rates."""
 
 import struct
 
@@ -8,6 +9,7 @@ import pytest
 
 from cpc_tpu.data import wavio as jwavio
 from cpc_tpu.data.dataset import decode_mono as jax_decode_mono
+from cpc_tpu.data.flac_encoder import write_flac as jax_write_flac
 from cpc_tpu_torch.data import wavio
 
 
@@ -60,12 +62,23 @@ def test_read_wav_matches_jax(kind, channels, tmp_path):
 
 
 def test_decode_mono_refuses_what_waits(tmp_path):
-    path = str(tmp_path / "a.wav")
-    jwavio.write_wav(path, np.zeros(100, np.float32), 8000)
-    with pytest.raises(NotImplementedError, match="resampling"):
-        wavio.decode_mono(path, 16000)
-    with pytest.raises(NotImplementedError, match="FLAC"):
-        wavio.decode_mono(str(tmp_path / "a.flac"), 16000)
+    # FLAC and resampling, which raised before the data feed was ported,
+    # now decode: an 8 kHz WAV and a stereo 22.05 kHz FLAC at 16 kHz, on
+    # the CPU, against the JAX package's decode_mono
+    rng = np.random.default_rng(4)
+    wav, flac = str(tmp_path / "a.wav"), str(tmp_path / "b.flac")
+    jwavio.write_wav(wav, rng.uniform(-0.5, 0.5, 800).astype(np.float32),
+                     8000)
+    jax_write_flac(flac, rng.uniform(-0.5, 0.5, (441, 2)).astype(np.float32),
+                   22050)
+    for path, rate in ((wav, 8000), (flac, 22050)):
+        got, sr = wavio.decode_mono(path, 16000, device="cpu")
+        want, want_sr = jax_decode_mono(path, 16000)
+        assert sr == want_sr == rate and got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max())
+    with pytest.raises(ValueError, match="no decoder"):
+        wavio.decode_mono(str(tmp_path / "a.mp3"), 16000, device="cpu")
 
 
 def test_not_a_wav_raises(tmp_path):
