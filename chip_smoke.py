@@ -193,7 +193,8 @@ Phases, in order; any failure exits non-zero:
    against their plain versions on phases 5 and 8's routes and
    tolerances, timed beside tpu_fast's; (d) `cpc_tpu_torch.train.cli.main
    --coordinator 127.0.0.1:P --num-processes 1 --process-id 0` for 10
-   steps (the launches counted), then 5 + 5 with `--resume`, bit-equal;
+   steps (the launches counted), then 5 + 5 with `--resume`, bit-equal
+   under the CLI's own cuDNN settings (torch's defaults: nothing forced);
    and `python -m cpc_tpu_torch.train --num-processes 2` on the one card
    under `--device cuda`, which must exit non-zero naming the cause.
 24. the data feed and the trainer's side features: (a) `ops.dsp.resample`
@@ -210,19 +211,39 @@ Phases, in order; any failure exits non-zero:
    for 10 steps of `tpu_fast`: metrics, checkpoint, the GRU and fused heads
    kernels once a step and the other loss kernels never, TensorBoard's
    tags in `tb/` (read here, CRCs checked), then 5 + 5 steps with
-   `--resume` bit-equal (cuDNN deterministic); (e) one step through the
-   device corpus against the host batch on the same indices, bit-equal,
+   `--resume` bit-equal under the CLI's own cuDNN settings; (e) one step
+   through the device corpus against the host batch on the same indices,
+   bit-equal (cuDNN deterministic: two different computations),
    then the host-batch step, the device-corpus step and the latter with
    augmentation timed in turns; (f) `augment_waveform` on the card's
    generator, each factor alone over 4 096 rows: gains, the polarity rate,
    shifts recovered from a ramp, the measured SNR; (g) the CLI under
    `--supervise --stale-after 120` for 20 steps, its child SIGKILLed once
    its first checkpoint lands: restarted, exit 0, the final parameters
-   bit-equal to an unsupervised run's (both runs deterministic through a
-   sitecustomize module on their path), the restart's cost; (h) 3 steps
+   bit-equal to an unsupervised run's (both under the CLI's own cuDNN
+   settings), the restart's cost; (h) 3 steps
    with `--profile` (a Chrome trace with CUDA kernels), 3 with
    `--nan-debug`, and a Trainer step with a NaN weight under
-   `enable_nan_debug`, which must raise FloatingPointError naming step 1.
+   `enable_nan_debug`, which must raise FloatingPointError naming step 1;
+25. export, the serving artifacts of `export.py`, which hold no kernel:
+   (a) `cpc_tpu_torch.eval.cli.main --export-model` on phase 20's workdir
+   on the card (symbolic batch; the CLI's wall printed), the program on
+   CUDA at 64 x 20 480 and at B = 1 and, moved, on the CPU at B = 4,
+   against the live model (z within 2e-2 of max |z|, c within 2e-2: the
+   GRU kernel against the plain recurrence in bf16), no kernel launched by
+   it; its extraction rate beside the live model's on the same batches and
+   `extract_features`' (in turns), and with torch's default cuDNN TF32;
+   (b) the streaming steps of phase 20's workdir (through the CLI) and of
+   a seed-0 `transformer_fast` (through `export_streaming_step`), fp32,
+   through the server's artifact backend in pushes of 1 s over 10 s,
+   against StreamingExtractor at phase 21's tolerances, each push timed
+   beside the live push; (c) `cpc_tpu_torch.serve.main --artifact` on i16
+   stdin: the header equal to `--workdir`'s, the summary with its dropped
+   tail, the frames bit-equal to the program driven at fp32 on the same
+   windows and within phase 21's tolerances of `--workdir`'s, the serve
+   loop's rate beside `--workdir`'s; (b) and (c) with torch's default TF32
+   settings in force, as a server process has them;
+   (d) every exported graph calls aten, prims and operator functions only.
 
 With `--dp-cards N` it runs data parallelism across N cards under NCCL
 instead, what one card cannot run (`dp_cards_main`).
@@ -263,8 +284,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from cpc_tpu_torch import CPCModel, extract_features, presets, serve
-from cpc_tpu_torch.config import apply_overrides, from_dict
+from cpc_tpu_torch import CPCModel, export, extract_features, presets, serve
+from cpc_tpu_torch.config import apply_overrides, from_dict, to_dict
 from cpc_tpu_torch.data.dataset import ProbeDataset, SnippetDataset
 from cpc_tpu_torch.data import flac
 from cpc_tpu_torch.data.flac import read_flac
@@ -2284,13 +2305,22 @@ def phase21_streams(card: str) -> None:
     samples against the offline VALID forward, 8 streams with one
     reset_stream, launches, push times and decode_step's time."""
     stream_kernel_checks(card)
-    kept = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = True      # torch's defaults
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with torch_tf32_defaults():
         for name in ("tpu_fast", "transformer_fast"):
             stream_model(card, name)
+
+
+@contextlib.contextmanager
+def torch_tf32_defaults():
+    """torch's default TF32 settings inside the block, whatever main() set
+    (cuDNN may take TF32, cuBLAS not), as a server process has them; the
+    caller's settings are restored after."""
+    kept = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = kept
@@ -2496,6 +2526,24 @@ DP_CLI_STEPS = 10
 # 5.7e-6 (wh) and 1.4e-6 (W) absolute, 3.4e-3 and 3.3e-3 of their largest
 # entry.
 DP_TOL = dict(STEP_TOL, grad_norm=1e-4)
+
+
+def cudnn_settings() -> str:
+    """The cuDNN settings of this process, for a line that reports bits."""
+    b = torch.backends.cudnn
+    return f"cudnn.deterministic {b.deterministic}, benchmark {b.benchmark}"
+
+
+def resumed_against_straight(straight: str, resumed: str) -> tuple:
+    """The newest checkpoints of two workdirs; the model tensors that differ
+    between them and the largest absolute difference among those."""
+    ckpts = [CheckpointManager(os.path.join(w, "checkpoints"))
+             .restore_latest() for w in (straight, resumed)]
+    a, b = ckpts[0]["model"], ckpts[1]["model"]
+    differ = [k for k, v in a.items() if not torch.equal(v, b[k])]
+    worst = max(((a[k].double() - b[k].double()).abs().max().item()
+                 for k in differ), default=0.0)
+    return ckpts, differ, worst
 
 
 def free_port() -> int:
@@ -2759,9 +2807,14 @@ def phase23c_kernels(card: str, measured: dict) -> dict:
         dp_ms = {"gru_scan": cuda_ms(lambda: gru_scan(*args)),
                  "gru_scan_backward": cuda_ms(
                      lambda: gru_scan_backward(*args, hs, g))}
+        # phases 3 and 5's bounds, from this run's tensors
+        bounds = {"gru_scan": bound([*args, hs], 2 * T * B * H * 3 * H),
+                  "gru_scan_backward": bound([*args, hs, g, *got],
+                                             3 * 2 * T * B * H * 3 * H)}
     for name, ms in dp_ms.items():
         print(f"time {name} at the DP shape {DP_GRU} bf16 on {card}: "
-              f"{ms:.4f} ms (tpu_fast's {SLICE_SHAPE}: "
+              f"{ms:.4f} ms, bound {bounds[name]['bound_ms']:.6f} ms by "
+              f"{bounds[name]['bound_by']} (tpu_fast's {SLICE_SHAPE}: "
               f"{measured[name]['ms']:.4f} ms)", flush=True)
     for name, m in heads_times_ms(DP_HEADS).items():
         dp_ms[name] = m["ms"]
@@ -2783,11 +2836,10 @@ def phase23c_kernels(card: str, measured: dict) -> dict:
 def phase23d_cli(card: str) -> dict:
     """dp_global_negatives through the training CLI on a one-rank NCCL
     group: 10 steps (the kernels' launches counted), then 5 + 5 with a
-    resume, equal bit for bit (cuDNN deterministic in all three runs);
+    resume, equal bit for bit under the program's own cuDNN settings;
     then --num-processes 2 on the one card must fail with NCCL's cause.
     Returns the straight run's launches."""
-    with tempfile.TemporaryDirectory() as root, \
-            forced("deterministic", True, module=torch.backends.cudnn):
+    with tempfile.TemporaryDirectory() as root:
         straight, resumed = (os.path.join(root, n) for n in ("a", "b"))
 
         def dp_args():
@@ -2810,15 +2862,13 @@ def phase23d_cli(card: str) -> dict:
                 return {r["step"]: r["loss"] for r in map(json.loads, f)
                         if r["prefix"] == "train"}
         a, b = losses(straight), losses(resumed)
-        ckpts = [CheckpointManager(os.path.join(w, "checkpoints"))
-                 .restore_latest() for w in (straight, resumed)]
-        differ = [k for k, v in ckpts[0]["model"].items()
-                  if not torch.equal(v, ckpts[1]["model"][k])]
+        ckpts, differ, worst = resumed_against_straight(straight, resumed)
         print(f"dp (d): {DP_CLI_STEPS} CLI steps straight vs 5 + "
-              f"{DP_CLI_STEPS - 5} resumed (one-rank NCCL, cuDNN "
-              f"deterministic): losses {[a[k] for k in sorted(a)]} vs "
+              f"{DP_CLI_STEPS - 5} resumed (one-rank NCCL, "
+              f"{cudnn_settings()}): losses {[a[k] for k in sorted(a)]} vs "
               f"{[b[k] for k in sorted(b)]}; step {DP_CLI_STEPS} "
-              f"checkpoints' tensors that differ: {differ}", flush=True)
+              f"checkpoints' tensors that differ: {differ}, largest "
+              f"absolute difference {worst:.3e}", flush=True)
         check(a == b and sorted(a) == list(range(1, DP_CLI_STEPS + 1)),
               "the resumed DP run's losses differ from the straight run's")
         check(not differ and ckpts[0]["meta"] == ckpts[1]["meta"],
@@ -3028,19 +3078,18 @@ def phase24d_train(card: str, root: str, packed: str) -> dict:
     """tpu_fast through the CLI on the packed corpus with --packed
     --device-corpus --augment: launches, metrics, checkpoint and
     TensorBoard tags; then 5 + 5 steps with --resume bit-equal to the
-    straight run (cuDNN deterministic in all three)."""
+    straight run under the program's own cuDNN settings."""
     feed = ["--packed", "--device-corpus", "--augment"]
     straight, resumed = (os.path.join(root, n) for n in ("d_a", "d_b"))
-    with forced("deterministic", True, module=torch.backends.cudnn):
-        counts = train_cli_run("packed, device corpus, augment", "tpu_fast",
-                               feed, FEED_CLI_STEPS,
-                               {k: 1 for k in GRU_KERNELS + HEADS_KERNELS},
-                               workdir=straight, data=packed)
-        for steps, extra in ((5, []), (FEED_CLI_STEPS, ["--resume"])):
-            rc = train_cli.main(["--config", "tpu_fast", "--data", packed,
-                                 *feed, "--workdir", resumed, "--steps",
-                                 str(steps), *extra])
-            check(rc == 0, f"feed cli leg of {steps} steps returned {rc}")
+    counts = train_cli_run("packed, device corpus, augment", "tpu_fast",
+                           feed, FEED_CLI_STEPS,
+                           {k: 1 for k in GRU_KERNELS + HEADS_KERNELS},
+                           workdir=straight, data=packed)
+    for steps, extra in ((5, []), (FEED_CLI_STEPS, ["--resume"])):
+        rc = train_cli.main(["--config", "tpu_fast", "--data", packed,
+                             *feed, "--workdir", resumed, "--steps",
+                             str(steps), *extra])
+        check(rc == 0, f"feed cli leg of {steps} steps returned {rc}")
     scalars = tb_scalars(os.path.join(straight, "tb"))
     with open(os.path.join(straight, "metrics.jsonl")) as f:
         last = [json.loads(line) for line in f][-1]
@@ -3053,14 +3102,12 @@ def phase24d_train(card: str, root: str, packed: str) -> dict:
     check(not missing and scalars["train/loss"][-1] == (
         FEED_CLI_STEPS, np.float32(last["loss"])),
           f"TensorBoard tags: missing {missing}")
-    ckpts = [CheckpointManager(os.path.join(w, "checkpoints"))
-             .restore_latest() for w in (straight, resumed)]
-    differ = [k for k, v in ckpts[0]["model"].items()
-              if not torch.equal(v, ckpts[1]["model"][k])]
+    ckpts, differ, worst = resumed_against_straight(straight, resumed)
     print(f"feed (d): {FEED_CLI_STEPS} CLI steps straight vs 5 + "
-          f"{FEED_CLI_STEPS - 5} resumed under --augment (cuDNN "
-          f"deterministic): step {ckpts[1]['meta']['step']} checkpoints' "
-          f"tensors that differ: {differ}", flush=True)
+          f"{FEED_CLI_STEPS - 5} resumed under --augment "
+          f"({cudnn_settings()}): step {ckpts[1]['meta']['step']} "
+          f"checkpoints' tensors that differ: {differ}, largest absolute "
+          f"difference {worst:.3e}", flush=True)
     check(not differ and ckpts[0]["meta"] == ckpts[1]["meta"],
           f"the resumed --augment run differs: {differ}")
     return counts
@@ -3183,21 +3230,14 @@ def phase24f_augment(card: str) -> None:
 def phase24g_supervisor(card: str, root: str, packed: str) -> None:
     """The CLI under --supervise, its child SIGKILLed once its first
     checkpoint lands: restarted, exit 0, final parameters bit-equal to an
-    unsupervised run's. Both runs' processes take cuDNN's deterministic
-    algorithms from a sitecustomize module on their path."""
-    site = os.path.join(root, "site")
-    os.makedirs(site)
-    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
-        f.write("import torch\ntorch.backends.cudnn.deterministic = True\n")
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        p for p in (site, os.getcwd(), os.environ.get("PYTHONPATH")) if p)}
+    unsupervised run's, both under the program's own cuDNN settings."""
     supervised, plain = (os.path.join(root, n) for n in ("g_sup", "g_plain"))
     args = [sys.executable, "-m", "cpc_tpu_torch.train", "--config",
             "tpu_fast", "--data", packed, "--packed", "--device-corpus",
             "--augment", "--steps", str(SUPERVISED_STEPS), "--set",
             "train.checkpoint_every=5", "--set", "train.log_every=1"]
     proc = subprocess.Popen([*args, "--workdir", supervised, "--supervise",
-                             "--stale-after", "120"], env=env,
+                             "--stale-after", "120"],
                             stdout=subprocess.DEVNULL,
                             stderr=subprocess.PIPE, text=True)
     pid_path = os.path.join(supervised, "supervisor_child.pid")
@@ -3222,21 +3262,19 @@ def phase24g_supervisor(card: str, root: str, packed: str) -> None:
         recs = [json.loads(line) for line in f]
     after = [r for r in recs if r["time"] > killed_at]
     restart_s = after[0]["time"] - killed_at
-    rc = subprocess.run([*args, "--workdir", plain], env=env,
+    rc = subprocess.run([*args, "--workdir", plain],
                         capture_output=True, text=True, timeout=600)
     check(rc.returncode == 0, f"unsupervised run: {rc.stderr[-2000:]}")
-    ckpts = [CheckpointManager(os.path.join(w, "checkpoints"))
-             .restore_latest() for w in (plain, supervised)]
-    differ = [k for k, v in ckpts[0]["model"].items()
-              if not torch.equal(v, ckpts[1]["model"][k])]
+    ckpts, differ, worst = resumed_against_straight(plain, supervised)
     print(f"feed (g): --supervise --stale-after 120, {SUPERVISED_STEPS} "
           f"steps, child SIGKILLed after its step-5 checkpoint: exit "
           f"{proc.returncode}, resumed at step {after[0]['step']}; restart "
           f"cost {restart_s:.2f} s from the kill to the resumed child's "
           f"first step logged (the supervisor's 10 s backoff, the new "
           f"process, the corpus upload and the step included) on {card}; "
-          f"final tensors that differ from an unsupervised run's: {differ}",
-          flush=True)
+          f"final tensors that differ from an unsupervised run's (both "
+          f"under the CLI's own cuDNN settings): {differ}, largest absolute "
+          f"difference {worst:.3e}", flush=True)
     check(not differ and ckpts[0]["meta"] == ckpts[1]["meta"]
           and ckpts[1]["meta"]["step"] == SUPERVISED_STEPS,
           f"the supervised run's parameters differ: {differ}")
@@ -3296,6 +3334,304 @@ def phase24_feed(card: str) -> dict:
         phase24g_supervisor(card, root, packed)
         phase24h_debug(card, root, packed)
     return counts
+
+
+# ---------------------------------------------------------------- phase 25
+# The serving artifacts (export.py) run the plain path; the live model runs
+# the GRU kernel. On c the two differ as kernel and plain differ in bf16
+# (TOL); on z they differ by where a bf16 conv rounds (the artifact's fp32
+# product rounded once against cuDNN's bf16 conv): held relative to the
+# largest |z|, at one bf16 rounding's size.
+EXPORT_Z_TOL = 2e-2
+# latents a call of a streaming-step artifact: its graph unrolls them (the
+# GRU's recurrence, the transformer's decode steps), so the trace grows
+# with them (on an H100 machine's host: 4.48 s for the CLI's 20-latent GRU
+# step, load included, and 13.66 s for 10 transformer latents; at 100,
+# the README's serving example, 37.38 s and 102.67 s; PERF.md §6). These
+# counts keep the phase short and are not a serving workload: the push
+# time depends on them. A push of 1 s (100 latents) is 5 or 10 calls
+EXPORT_LATENTS = {"tpu_fast": 20, "transformer_fast": 10}
+OPERATOR_FNS = {f for f in vars(__import__("operator")).values()
+                if callable(f)}
+
+
+def graph_is_plain(ep) -> list:
+    """The call targets of an exported graph that are not aten, prims or
+    operator functions (none, for an artifact with no kernel in it)."""
+    out = []
+    for n in ep.graph.nodes:
+        if n.op != "call_function":
+            continue
+        t = n.target
+        if isinstance(t, torch._ops.OpOverload):
+            if t.namespace not in ("aten", "prims"):
+                out.append(str(t))
+        elif t not in OPERATOR_FNS:
+            out.append(str(t))
+    return out
+
+
+def counted_launches(fn):
+    """(fn(), the kernels' launches during it), every count set to 0
+    just before."""
+    for f in COUNTED.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in COUNTED.items() if f.launches}
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of fn() with a CUDA sync around each call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def phase25a_extractor(card: str, workdir: str, root: str) -> None:
+    """The extractor artifact of phase 20's workdir through the eval CLI on
+    the card (symbolic batch), run on CUDA at 64 x 20 480 and B = 1 and on
+    the CPU, against the live model; its extraction rate beside the live
+    one."""
+    path = os.path.join(root, "extractor.pt2")
+    row, counts, wall = eval_cli_run(["--workdir", workdir, "--device",
+                                      "cuda", "--export-model", path])
+    with open(path + ".json") as f:
+        side = json.load(f)
+    print(f"export (a): python -m cpc_tpu_torch.eval --export-model on "
+          f"{card}: {json.dumps(row)} in {wall:.2f} s (the CLI's wall: "
+          f"config, checkpoint, trace of the plain path with a symbolic "
+          f"batch, save); sidecar kernels {side['kernels']!r}, launches "
+          f"{counts}", flush=True)
+    check(row["checkpoint_step"] == TRAIN_STEPS and not counts
+          and side["kernels"] == "plain"
+          and row["in_avals"] == ["f32[b,20480]"], f"export row {row}")
+    cfg, model = workdir_model(workdir)
+    S, B = cfg.data.snippet_samples, cfg.data.batch_size
+    x = np.random.default_rng(25).standard_normal((B, S)).astype(
+        np.float32) * 0.1
+    fn = export.load_artifact(path, "cuda").module()
+    bad = graph_is_plain(export.load_artifact(path))
+    check(not bad, f"the extractor artifact calls {bad}")
+
+    def live(xb):
+        with torch.inference_mode():
+            z, c = model.latents(prepare_waveform(xb, cfg.data.normalize))
+        return z.float().cpu(), c.float().cpu()
+
+    def art(f, xb):
+        with torch.inference_mode():
+            z, c = f(xb)
+        return z.float().cpu(), c.float().cpu()
+    errs = {}
+    for rows in (B, 1):
+        xb = torch.from_numpy(x[:rows]).cuda()
+        (z, c), n_art = counted_launches(lambda: art(fn, xb))
+        (zl, cl), n_live = counted_launches(lambda: live(xb))
+        check(not n_art and n_live == {"gru_scan": 1},
+              f"launches: artifact {n_art}, live {n_live}")
+        errs[rows] = ((z - zl).abs().max().item() / zl.abs().max().item(),
+                      (c - cl).abs().max().item())
+    fn_cpu = export.load_artifact(path, "cpu").module()
+    rows = 4
+    t0 = time.perf_counter()
+    z, c = art(fn_cpu, torch.from_numpy(x[:rows]))
+    cpu_s = time.perf_counter() - t0
+    zl, cl = live(torch.from_numpy(x[:rows]).cuda())
+    errs[f"the CPU at {rows}"] = (
+        (z - zl).abs().max().item() / zl.abs().max().item(),
+        (c - cl).abs().max().item())
+    print("export (a): the artifact against the live model (GRU kernel): "
+          + ", ".join(f"B = {k}: z {e[0]:.3e} of max |z| (tol "
+                      f"{EXPORT_Z_TOL:.0e}), c {e[1]:.3e} (tol "
+                      f"{TOL[torch.bfloat16]:.0e})" for k, e in errs.items())
+          + f"; the CPU call {cpu_s:.2f} s on the host of {card}",
+          flush=True)
+    for k, (ez, ec) in errs.items():
+        check(ez <= EXPORT_Z_TOL and ec <= TOL[torch.bfloat16],
+              f"artifact vs live ({k}): z {ez}, c {ec}")
+
+    n_batches = 4
+    wave = (np.random.default_rng(1).standard_normal(n_batches * B * S)
+            * 0.1).astype(np.float32)
+    batches = [torch.from_numpy(b).cuda() for b in wave.reshape(
+        n_batches, B, S)]
+    runs = {   # each over the same 4 device-resident batches, to the host
+        "artifact": lambda: [art(fn, xb) for xb in batches],
+        "live": lambda: [live(xb) for xb in batches],
+        "extract_features": lambda: extract_features(
+            model, wave, window=S, batch_windows=B,
+            normalize=cfg.data.normalize)}
+    for run in runs.values():   # warm-up
+        run()
+    ms = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]) * 3:
+        for k in order:
+            ms[k].append(host_ms(runs[k], 1))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True   # torch's default
+    try:
+        runs["artifact"]()
+        ms_tf32 = host_ms(runs["artifact"], 3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    audio = n_batches * B * S / cfg.data.sample_rate
+    rate = {k: audio / statistics.median(v) * 1e3 for k, v in ms.items()}
+    print(f"export (a): {audio:.2f} audio-s of tpu_fast extraction (batch "
+          f"{B}, bf16) on {card}, median of 6 in turns (host clock, CUDA "
+          f"sync): the artifact {rate['artifact']:.1f} audio-s/s (its fp32 "
+          f"conv products with cuDNN's TF32 off, as this script runs; "
+          f"{audio / ms_tf32 * 1e3:.1f} with torch's default "
+          f"cudnn.allow_tf32=True, exact on bf16 inputs), the live model's "
+          f"latents on the same device-resident batches "
+          f"{rate['live']:.1f}, live extract_features (host windowing and "
+          f"copies included, phase 4's measure) "
+          f"{rate['extract_features']:.1f}", flush=True)
+
+
+def stream_artifact_run(card: str, name: str, path: str, model,
+                        rate: int) -> None:
+    """Drives the streaming-step artifact at `path` through the server's
+    backend (`serve._ArtifactStream` on the card), under torch's default
+    TF32 settings as a server process has them, in pushes of 1 s over
+    STREAM_SECONDS of seeded audio: against StreamingExtractor(model) fed
+    the same chunks at phase 21's tolerances, no kernel launched, each push
+    timed beside the live push."""
+    bad = graph_is_plain(export.load_artifact(path))
+    check(not bad, f"the {name} step artifact calls {bad}")
+    wave = (np.random.default_rng(21).standard_normal(
+        STREAM_SECONDS * rate) * 0.1).astype(np.float32)
+    with torch_tf32_defaults():
+        art = serve._ArtifactStream(path, "cuda")
+        z, c, secs, launched, _ = feed(art, wave, rate)
+        check(not launched, f"{name} step artifact launched {launched}")
+        zl, cl, live_secs, _, _ = feed(StreamingExtractor(model), wave, rate)
+    ez, ec = held("z", z, zl[:len(z)]), held("c", c, cl[:len(c)])
+    steady, live = (statistics.median(v[1:]) * 1e3
+                    for v in (secs, live_secs))
+    print(f"export (b): {name} streaming step of {art.n_latents} latents "
+          f"(window {art.window}, fp32), {len(z) // art.n_latents} windows "
+          f"of {STREAM_SECONDS} s of audio through serve's artifact backend "
+          f"with torch's default TF32 settings in force: z {ez:.3e}, c "
+          f"{ec:.3e} from StreamingExtractor fed the same {rate}-sample "
+          f"chunks (tol rtol 1e-5 + atol 1e-5 / 2e-5), no kernel launched; "
+          f"on {card}: a push of 1 s ({rate // art.hop} or so calls, each "
+          f"the copy in, the program, the copies out) {steady:.2f} ms "
+          f"(first {secs[0] * 1e3:.2f}; median of {len(secs) - 1}, host "
+          f"clock) against the live push {live:.2f} ms in the same call",
+          flush=True)
+
+
+def phase25b_streams(card: str, workdir: str, root: str) -> str:
+    """Streaming-step artifacts of both gars: the GRU's exported by the CLI
+    from phase 20's workdir, the transformer's by `export_streaming_step`
+    from a seed-0 transformer_fast model; each driven against
+    StreamingExtractor and timed. Returns the GRU artifact's path."""
+    path = os.path.join(root, "stream.pt2")
+    row, counts, wall = eval_cli_run(
+        ["--workdir", workdir, "--device", "cuda", "--export-model", path,
+         "--export-streaming", str(EXPORT_LATENTS["tpu_fast"])])
+    print(f"export (b): python -m cpc_tpu_torch.eval --export-streaming "
+          f"{EXPORT_LATENTS['tpu_fast']} on {card}: {json.dumps(row)} in "
+          f"{wall:.2f} s (the CLI's wall), launches {counts}", flush=True)
+    check(not counts and row["in_avals"][0] == "f32[1,1,256]",
+          f"streaming export {row}, launches {counts}")
+    cfg, model = workdir_model(workdir)
+    stream_artifact_run(card, "tpu_fast (phase 20's workdir)", path, model,
+                        cfg.data.sample_rate)
+
+    cfg = presets.transformer_fast()
+    model = CPCModel(cfg.model, device="cuda",
+                     generator=torch.Generator().manual_seed(0)).eval()
+    tr_path = os.path.join(root, "transformer.pt2")
+    t0 = time.perf_counter()
+    export.save_artifact(tr_path, export.export_streaming_step(
+        model, chunk_latents=EXPORT_LATENTS["transformer_fast"]),
+        meta={"config": to_dict(cfg)})
+    print(f"export (b): transformer_fast (seed 0) streaming step of "
+          f"{EXPORT_LATENTS['transformer_fast']} latents traced and saved "
+          f"in {time.perf_counter() - t0:.2f} s on {card}", flush=True)
+    stream_artifact_run(card, "transformer_fast (seed 0)", tr_path, model,
+                        cfg.data.sample_rate)
+    return path
+
+
+def phase25c_serve(card: str, workdir: str, path: str) -> None:
+    """`serve.main --artifact` of phase 20's workdir's streaming step, on i16
+    stdin, with torch's default TF32 settings in force: its frames against
+    `--workdir`'s and against the same program driven directly at fp32
+    (TF32 off) on the same windows."""
+    cfg, _ = workdir_model(workdir)
+    n = EXPORT_LATENTS["tpu_fast"]
+    rate, seconds = cfg.data.sample_rate, 30
+    q = np.clip(np.random.default_rng(24).standard_normal(seconds * rate)
+                * 3000, -32768, 32767).astype("<i2")
+    frames, lines = {}, {}
+    for src in (["--artifact", path], ["--workdir", workdir]):
+        out, err = io.BytesIO(), StampedText()
+        with torch_tf32_defaults():     # a server process's settings
+            (rc, launched) = counted_launches(lambda: serve.main(
+                [*src, "--emit", "zc", "--in-format", "i16"],
+                stdin=io.BytesIO(q.tobytes()), stdout=out, stderr=err))
+        check(rc == 0, f"serve {src[0]} returned {rc}")
+        key = src[0][2:]
+        lines[key] = [json.loads(x) for x in err.getvalue().splitlines()]
+        lines[key].append((err.stamp('"frames"') - err.stamp('"frame_dim"'),
+                           launched))
+        frames[key] = np.frombuffer(out.getvalue(), "<f4").reshape(-1, 768)
+    loop_s, launched = lines["artifact"][-1]
+    check(not launched, f"serve --artifact launched {launched}")
+    check(lines["artifact"][0] == lines["workdir"][0],
+          f"headers {lines['artifact'][0]} vs {lines['workdir'][0]}")
+    W = 465 + (n - 1) * 160
+    hop = n * 160
+    windows = (len(q) - W) // hop + 1
+    summary = lines["artifact"][-2]
+    check(summary == {"frames": windows * n,
+                      "dropped_tail_samples": len(q) - windows * hop,
+                      "dropped_partial_bytes": 0}, f"summary {summary}")
+    fa, fw = frames["artifact"], frames["workdir"][:len(frames["artifact"])]
+    ez, ec = held("z", fa[:, :512], fw[:, :512]), held("c", fa[:, 512:],
+                                                       fw[:, 512:])
+    fn = export.load_artifact(path, "cuda").module()
+    h = torch.zeros((1, 1, 256), device="cuda")
+    deq = q.astype(np.float32) / 32768.0
+    direct = []
+    with torch.no_grad(), fp32_exact():     # the program at fp32
+        for j in range(windows):
+            z, c, h = fn(h, torch.from_numpy(
+                deq[None, j * hop:j * hop + W]).cuda())
+            direct.append(torch.cat([z[0], c[0]], 1).cpu().numpy())
+    check(np.array_equal(fa, np.concatenate(direct)),
+          "served frames differ from the program driven directly")
+    print(f"export (c): serve --artifact (phase 20's workdir's streaming "
+          f"step, {n} latents a call) --emit zc --in-format i16, {seconds} "
+          f"audio-s: summary {json.dumps(summary)}, header equal to "
+          f"--workdir's; frames bit-equal to the program driven on the "
+          f"same windows; against serve --workdir over the {len(fa)} "
+          f"frames of complete windows: z {ez:.3e}, c {ec:.3e} (bit-equal: "
+          f"{np.array_equal(fa, fw)}; the live path runs the GRU kernel, "
+          f"the artifact its plain recurrence); no kernel launched; on "
+          f"{card}: the serve loop {loop_s * 1e3:.2f} ms = "
+          f"{seconds / loop_s:.1f} audio-s/s, --workdir's "
+          f"{lines['workdir'][-1][0] * 1e3:.2f} ms in the same call",
+          flush=True)
+
+
+def phase25_export(card: str, workdir: str) -> None:
+    """Phase 25: the serving artifacts, from phase 20's workdir."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        phase25a_extractor(card, workdir, root)
+        path = phase25b_streams(card, workdir, root)
+        phase25c_serve(card, workdir, path)
+        print(f"export: phase 25 in {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
 
 # ------------------------------------------------ data parallelism, N cards
@@ -3610,21 +3946,26 @@ def main() -> None:
         phase21_streams(card)
         phase22_serve(card, workdir)
 
-    # 23. data parallelism: a one-rank NCCL step against the step, two gloo
-    # ranks on the card against one process, the kernels at the per-rank
-    # shapes, the CLI with a resume
-    phase23a_one_rank(card)
-    dp_launches = phase23b_two_ranks(card)
-    dp_ms = phase23c_kernels(card, measured)
-    cli_counts = phase23d_cli(card)
-    dp_launches.update({k: cli_counts[k] for k in GRU_KERNELS
-                        + HEADS_KERNELS})
+        # 23. data parallelism: a one-rank NCCL step against the step, two
+        # gloo ranks on the card against one process, the kernels at the
+        # per-rank shapes, the CLI with a resume
+        phase23a_one_rank(card)
+        dp_launches = phase23b_two_ranks(card)
+        dp_ms = phase23c_kernels(card, measured)
+        cli_counts = phase23d_cli(card)
+        dp_launches.update({k: cli_counts[k] for k in GRU_KERNELS
+                            + HEADS_KERNELS})
 
-    # 24. the data feed and the trainer's side features: resampling, FLAC,
-    # packing, --packed --device-corpus --augment through the CLI, the two
-    # feeds against each other, augmentation, the supervisor, profiling
-    # and nan-debug
-    feed_launches = phase24_feed(card)
+        # 24. the data feed and the trainer's side features: resampling,
+        # FLAC, packing, --packed --device-corpus --augment through the
+        # CLI, the two feeds against each other, augmentation, the
+        # supervisor, profiling and nan-debug
+        feed_launches = phase24_feed(card)
+
+        # 25. export: the extractor artifact of phase 20's workdir on the
+        # card and on the CPU, the streaming steps of both gars, serve
+        # --artifact
+        phase25_export(card, workdir)
 
     sources = {
         "gru_scan": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:57"),

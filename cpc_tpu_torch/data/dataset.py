@@ -9,9 +9,12 @@ flat index; item i is the i-th fixed-length snippet, float32, or int16 from
 a per-file quantized cache for the int16 wire format. Both packages build
 the same index over the same corpus (tests/test_torch_port_data.py).
 
-WAV and FLAC (`data.wavio.decode_mono`). A file's snippet count comes from
-its WAV header or FLAC STREAMINFO, converted to the target rate as the
-resampler counts; a FLAC stream whose total is unknown (0) is decoded. A
+WAV and FLAC (`data.wavio.decode_mono`), and any format added with
+`register_decoder(ext, fn, info_fn=None)`, the JAX package's hook: the
+corpus walk (`list_audio_files`) takes every registered extension. A
+file's snippet count comes from its WAV header, FLAC STREAMINFO or the
+format's `info_fn`, converted to the target rate as the resampler counts;
+a file whose total is unknown (0), or without an `info_fn`, is decoded. A
 file at another rate is resampled once, when it is decoded, on the
 dataset's `device` (the CLIs pass their `--device`); one at the target rate
 never touches it.
@@ -26,22 +29,45 @@ from __future__ import annotations
 
 import bisect
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from cpc_tpu_torch.data.wavio import INFOS, decode, decode_mono
-
-AUDIO_EXTS = (".wav", ".flac")
+from cpc_tpu_torch.data.wavio import DECODERS, INFOS, decode, decode_mono
 
 
-def list_audio_files(root: str) -> List[str]:
+def register_decoder(ext: str, fn: Callable[[str], Tuple[np.ndarray, int]],
+                     info_fn: Optional[Callable[[str], Tuple[int, int]]]
+                     = None) -> None:
+    """Adds (or replaces) the decoder of extension `ext`: fn(path) ->
+    (samples (T, C) float32, native rate), and optionally info_fn(path) ->
+    (num_samples, native rate) from the header alone."""
+    DECODERS[ext.lower()] = fn
+    if info_fn is not None:
+        INFOS[ext.lower()] = info_fn
+
+
+def list_audio_files(root: str,
+                     exts: Optional[Sequence[str]] = None) -> List[str]:
+    """The files under `root` with one of `exts` (default: every registered
+    decoder's), in sorted walk order."""
+    exts = tuple(e.lower() for e in (exts or DECODERS.keys()))
     out = []
     for dirpath, _, files in sorted(os.walk(root)):
         for fn in sorted(files):
-            if os.path.splitext(fn)[1].lower() in AUDIO_EXTS:
+            if os.path.splitext(fn)[1].lower() in exts:
                 out.append(os.path.join(dirpath, fn))
     return out
+
+
+def _info(path: str) -> Tuple[int, int]:
+    """(num_samples, native rate) from the header, or (0, 0) where the
+    format has no probe or the header does not say."""
+    probe = INFOS.get(os.path.splitext(path)[1].lower())
+    try:
+        return probe(path) if probe is not None else (0, 0)
+    except (ValueError, OSError):
+        return 0, 0
 
 
 class _DecodedCache:
@@ -142,10 +168,7 @@ class SnippetDataset(FlatSnippetIndex):
     def _num_samples(self, path: str) -> int:
         """Target-rate sample count, from the file's header when it gives
         one; else from a decode."""
-        try:
-            n, sr = INFOS[os.path.splitext(path)[1].lower()](path)
-        except (ValueError, OSError):
-            n = 0
+        n, sr = _info(path)
         if n > 0:
             if sr == self.sample_rate:
                 return n
@@ -210,9 +233,5 @@ class ProbeDataset(SnippetDataset):
 
     def _native_rate(self, path: str) -> int:
         if path not in self._rates:
-            try:
-                sr = INFOS[os.path.splitext(path)[1].lower()](path)[1]
-            except (ValueError, OSError):
-                sr = 0
-            self._rates[path] = sr or decode(path)[1]
+            self._rates[path] = _info(path)[1] or decode(path)[1]
         return self._rates[path]

@@ -149,14 +149,17 @@ def _raw_arr(raw: bytes, dtype) -> np.ndarray:
     return np.frombuffer(raw[: (len(raw) // item) * item], dtype=dtype)
 
 
+# The decoder registry, by lower-case extension (`data.dataset.
+# register_decoder` adds a format): decoders, and header-only
+# (num_samples, native_rate) probes, which no sample is decoded for; a
+# format without a probe is decoded to be counted.
 DECODERS = {".wav": read_wav, ".flac": read_flac}
-# header-only (num_samples, native_rate) probes: no sample is decoded
 INFOS = {".wav": wav_info, ".flac": flac_info}
 
 
 def decode(path: str) -> Tuple[np.ndarray, int]:
-    """(samples (T, C) float32 in [-1, 1], native rate) of a WAV or FLAC
-    file."""
+    """(samples (T, C) float32 in [-1, 1], native rate) of a file in a
+    registered format (WAV, FLAC, or one added by `register_decoder`)."""
     ext = os.path.splitext(path)[1].lower()
     if ext not in DECODERS:
         raise ValueError(f"no decoder for {ext!r} ({path}); "

@@ -16,8 +16,15 @@ default) probes the corpus under `<workdir>/synthetic_corpus`, written
 there on first use as the JAX CLI writes it; `--packed` reads `--data` as
 a packed corpus (`data.packed`). `--device cuda` (the default) on a
 machine without a GPU raises; files at another rate than the config's are
-resampled on it. The `--export-*` flags wait for ROADMAP.md A9: each is
-accepted and raises.
+resampled on it.
+
+`--export-model PATH` freezes the model into a serving artifact instead
+(`export.py`: a `torch.export` program at PATH and its PATH.json sidecar),
+traced on `--device`: the windowed extractor (`--export-batch N` pins its
+batch, `--export-dtype bfloat16` bakes bf16 weights), or with
+`--export-streaming N_LATENTS` the streaming step (`--export-streams S`
+lockstep streams, `--export-stats MEAN STD` a baked input normalization),
+which `python -m cpc_tpu_torch.serve --artifact PATH` serves.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cpc_tpu_torch.config import CPCConfig, from_dict, presets
+from cpc_tpu_torch.config import CPCConfig, from_dict, presets, to_dict
 from cpc_tpu_torch.data.dataset import ProbeDataset
 from cpc_tpu_torch.data.packed import PackedSnippetDataset
 from cpc_tpu_torch.data.synthetic import generate_synthetic_corpus
@@ -39,12 +46,11 @@ from cpc_tpu_torch.data.wavio import decode_mono
 from cpc_tpu_torch.eval.battery import probe_milestone
 from cpc_tpu_torch.eval.features import extract_features
 from cpc_tpu_torch.eval.probes import run_phone_probe, run_speaker_probe
+from cpc_tpu_torch.export import (export_extractor, export_streaming_step,
+                                  save_artifact)
 from cpc_tpu_torch.interop import from_jax_params, unflatten_params
 from cpc_tpu_torch.models.cpc import CPCModel
 from cpc_tpu_torch.train.checkpoint import CheckpointManager
-
-_EXPORT_FLAGS = ("export_model", "export_batch", "export_streaming",
-                 "export_dtype", "export_stats")
 
 
 def load_weights(model: CPCModel, workdir: str,
@@ -117,27 +123,58 @@ def main(argv=None) -> int:
                    help="--extract sliding-window hop in samples (< window "
                         "gives overlapped windows with warm gar context; "
                         "default: window)")
-    for flag in ("--export-model", "--export-batch", "--export-streaming",
-                 "--export-dtype"):
-        p.add_argument(flag, default=None,
-                       help="serving-artifact export (not ported yet: "
-                            "ROADMAP.md A9)")
+    p.add_argument("--export-model", default=None, metavar="PATH",
+                   help="instead of probing: bake the weights into a "
+                        "portable torch.export serving artifact at PATH "
+                        "(+ PATH.json sidecar) — see cpc_tpu_torch/export.py")
+    p.add_argument("--export-batch", type=int, default=None,
+                   help="pin the artifact's batch dim (default: symbolic, "
+                        "one artifact serves any batch size)")
+    p.add_argument("--export-streaming", type=int, default=None,
+                   metavar="N_LATENTS",
+                   help="export the real-time streaming STEP (N_LATENTS "
+                        "latents per fixed-shape call; GRU or transformer "
+                        "gar) instead of the windowed extractor")
     p.add_argument("--export-streams", type=int, default=1,
-                   help="serving-artifact export (not ported yet: "
-                        "ROADMAP.md A9)")
+                   help="independent lockstep streams in the streaming "
+                        "artifact (batched serving; default 1)")
+    p.add_argument("--export-dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="bake the weights in this dtype (bfloat16 halves "
+                        "the artifact; ~1e-2 relative feature error). "
+                        "Windowed extractor only")
     p.add_argument("--export-stats", type=float, nargs=2, default=None,
                    metavar=("MEAN", "STD"),
-                   help="serving-artifact export (not ported yet: "
-                        "ROADMAP.md A9)")
+                   help="streaming export: bake a fixed (x-MEAN)/STD input "
+                        "normalization into the step (a stream cannot "
+                        "reproduce the per-snippet normalization most "
+                        "presets train with — pass corpus-level stats or "
+                        "the artifact sees raw samples)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
 
-    if args.export_streams != 1 or any(getattr(args, f) is not None
-                                       for f in _EXPORT_FLAGS):
-        raise NotImplementedError(
-            "the --export-* flags (the StableHLO serving artifact) are not "
-            "ported yet: ROADMAP.md A9")
+    streaming_export = args.export_streaming is not None
+    if args.export_model is None:
+        for flag, name in ((streaming_export, "--export-streaming"),
+                           (args.export_streams != 1, "--export-streams"),
+                           (args.export_batch is not None, "--export-batch"),
+                           (args.export_dtype is not None, "--export-dtype"),
+                           (args.export_stats is not None, "--export-stats")):
+            if flag:
+                p.error(f"{name} requires --export-model")
+    elif streaming_export:
+        # flags that only shape the windowed artifact must not be
+        # silently dropped in streaming mode
+        for flag, name in ((args.export_batch is not None, "--export-batch"),
+                           (args.export_dtype is not None, "--export-dtype")):
+            if flag:
+                p.error(f"{name} applies to the windowed extractor, not "
+                        "--export-streaming")
+    elif args.export_stats is not None:
+        p.error("--export-stats applies to --export-streaming (the "
+                "windowed extractor bakes the training-matched per-window "
+                "normalization automatically)")
     device = cuda_or_raise(args.device)
 
     saved = os.path.join(args.workdir, "config.json")
@@ -160,6 +197,37 @@ def main(argv=None) -> int:
                           "model"}))
         step = 0
     model.to(device).eval()
+
+    if args.export_model:
+        if streaming_export:
+            if cfg.data.normalize and args.export_stats is None:
+                print(json.dumps({"warning": (
+                    "this config trains on per-snippet-NORMALIZED input, "
+                    "which a stream cannot reproduce; the streaming "
+                    "artifact will see raw samples. Pass --export-stats "
+                    "MEAN STD (corpus-level) to bake a fixed input "
+                    "normalization")}))
+            ep = export_streaming_step(model,
+                                       chunk_latents=args.export_streaming,
+                                       n_streams=args.export_streams,
+                                       stats=args.export_stats)
+        else:
+            ep = export_extractor(model,
+                                  snippet_samples=cfg.data.snippet_samples,
+                                  batch=args.export_batch,
+                                  normalize=cfg.data.normalize,
+                                  params_dtype=args.export_dtype)
+        sidecar = save_artifact(args.export_model, ep,
+                                meta={"checkpoint_step": step,
+                                      "config": to_dict(cfg)})
+        print(json.dumps({"checkpoint_step": step,
+                          "export": args.export_model,
+                          "device": str(device),
+                          "platforms": sidecar["platforms"],
+                          "in_avals": sidecar["in_avals"],
+                          "out_avals": sidecar["out_avals"],
+                          "bytes": sidecar["bytes"]}))
+        return 0
 
     if args.extract:
         wave, _ = decode_mono(args.extract, cfg.data.sample_rate, device)

@@ -122,6 +122,7 @@ class StreamingExtractor:
         self._model.eval()
         self.rf, self.down = receptive_field(cfg.encoder.kernels,
                                              cfg.encoder.strides)
+        self.d_enc, self.d_ar = cfg.encoder.d_enc, cfg.ar.d_ar
         if stats is not None:
             m, s = float(stats[0]), float(stats[1])
             if not (np.isfinite(m) and np.isfinite(s) and s > 0):

@@ -20,6 +20,11 @@ buy no agreement and lose the kernel; the measurement is in
 tests/test_torch_port_gru_resident.py. The JAX package's v5e envelope
 fallback (B > 384 or H > 256) is not carried over: a CUDA tensor runs the
 kernel or raises.
+
+A graph being exported (`export.py`) runs `gru_scan_reference` instead,
+on any device, since the kernel's ctypes launch cannot be traced into a
+graph (`ops.conv_cuda.conv1d` routes on the same test). Every other caller
+keeps the kernel.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 from torch import nn
 
 from cpc_tpu_torch.models._init import lecun_normal_
-from cpc_tpu_torch.ops.gru_cuda import gru_scan
+from cpc_tpu_torch.ops.gru_cuda import gru_scan, gru_scan_reference
 
 
 class _GRULayer(nn.Module):
@@ -64,7 +69,9 @@ class _GRULayer(nn.Module):
 
     def forward(self, x: torch.Tensor, h0: Optional[torch.Tensor] = None,
                 time_major_out: bool = False) -> torch.Tensor:
-        hs = gru_scan(*self.scan_inputs(x, h0))  # (T, B, H)
+        scan = (gru_scan_reference if torch.compiler.is_exporting()
+                else gru_scan)
+        hs = scan(*self.scan_inputs(x, h0))  # (T, B, H)
         return hs if time_major_out else hs.transpose(0, 1)
 
 

@@ -70,8 +70,10 @@ def conv1d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     input length divisible by the stride, measured off by up to 5 at
     outputs of magnitude 5), so the CPU runs the product in fp32 and rounds
     it once, which is what a bf16 conv with fp32 accumulation computes, in
-    the backward too."""
-    if h.device.type == "cpu" and h.dtype != torch.float32:
+    the backward too. A graph being exported (`export.py`) takes the same
+    route on any device, since the artifact runs on the CPU as well."""
+    if (h.device.type == "cpu" or torch.compiler.is_exporting()) \
+            and h.dtype != torch.float32:
         return F.conv1d(h.float(), w.float(), b.float(),
                         stride=stride).to(h.dtype)
     return F.conv1d(h, w, b, stride=stride)

@@ -12,7 +12,8 @@ reference the card is checked against.
 The filterbanks and the constant-Q bank are designed in numpy, with the
 JAX module's code copied here (that module imports jax.numpy), and go to a
 device once: `_on_device` caches them per (design, device, dtype), so a
-step uploads nothing and a module's state_dict holds none of them.
+step uploads nothing and a module's state_dict holds none of them (an
+exported graph holds them as its constants).
 """
 
 from __future__ import annotations
@@ -91,20 +92,33 @@ def _cqt_kernels(n_bins: int, fmin: float, fmax: float, sample_rate: int,
     return kern, n_max, float(Q), float(b)
 
 
+def _design(design: str, args: tuple) -> np.ndarray:
+    """The numpy constant `design(*args)`."""
+    if design == "hann":
+        return np.hanning(*args).astype(np.float32)  # symmetric, as JAX's
+    if design == "filterbank":
+        return _filterbank(*args)
+    return _cqt_kernels(*args)[0]
+
+
 @functools.lru_cache(maxsize=16)
 def _on_device(design: str, args: tuple, device: torch.device,
                dtype: torch.dtype) -> torch.Tensor:
     """The numpy constant `design(*args)` as a tensor on `device`, made once.
     Made outside inference mode, so that a bank first made during
     extraction still serves a training step."""
-    if design == "hann":
-        a = np.hanning(*args).astype(np.float32)  # symmetric, as the JAX one
-    elif design == "filterbank":
-        a = _filterbank(*args)
-    else:
-        a = _cqt_kernels(*args)[0]
     with torch.inference_mode(False):
-        return torch.from_numpy(a).to(device, dtype)
+        return torch.from_numpy(_design(design, args)).to(device, dtype)
+
+
+def _bank(design: str, args: tuple, device: torch.device,
+          dtype: torch.dtype) -> torch.Tensor:
+    """`_on_device`, but in a graph being exported (`export.py`), where the
+    tensor made is the tracer's and must not be cached for live calls: there
+    the bank is made anew, a constant of the graph."""
+    if torch.compiler.is_exporting():
+        return torch.from_numpy(_design(design, args)).to(device, dtype)
+    return _on_device(design, args, device, dtype)
 
 
 def cqt(
@@ -129,8 +143,8 @@ def cqt(
             f"window ({n_max // 2} samples = {n_max / 2 / sample_rate:.2f} s "
             f"at fmin={fmin}); got {x.shape[-1]} samples — raise fmin, "
             f"lower max_kernel, or feed longer audio")
-    kern = _on_device("cqt", (n_bins, fmin, fmax, sample_rate, max_kernel),
-                      x.device, x.dtype)
+    kern = _bank("cqt", (n_bins, fmin, fmax, sample_rate, max_kernel),
+                 x.device, x.dtype)
     proj = frame_signal(x, n_max, hop) @ kern  # (B, T', 2*n_bins)
     re = proj[..., 0::2]
     im = proj[..., 1::2]
@@ -178,9 +192,9 @@ def scalogram(
     if scale == "cqt":
         return cqt(x, hop=hop, n_bins=n_bins, fmin=fmin, fmax=fmax,
                    sample_rate=sample_rate, eps=eps)
-    fb = _on_device("filterbank", (n_fft, n_bins, fmin, fmax, sample_rate,
-                                   scale), x.device, x.dtype)
-    window = _on_device("hann", (n_fft,), x.device, x.dtype)
+    fb = _bank("filterbank", (n_fft, n_bins, fmin, fmax, sample_rate,
+                              scale), x.device, x.dtype)
+    window = _bank("hann", (n_fft,), x.device, x.dtype)
     spec = torch.fft.rfft(frame_signal(x, n_fft, hop) * window, dim=-1)
     power = spec.abs() ** 2  # (B, frames, n_freqs)
     return torch.log(power @ fb + eps)

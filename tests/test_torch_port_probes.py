@@ -402,12 +402,16 @@ def test_cli_probes_jax_params_npz(setup, tmp_path, capsys):
                                    probe_seeds=1) == row
 
 
-def test_cli_unported_flags_raise(tmp_path):
-    # --packed no longer raises (tests/test_torch_port_feed.py runs it)
-    for flag in (["--export-model", "m"], ["--export-streams", "2"],
+def test_cli_unported_flags_raise(tmp_path, capsys):
+    # every flag is ported: --packed runs (tests/test_torch_port_feed.py),
+    # and the --export-* flags export (tests/test_torch_port_export.py);
+    # without --export-model they raise as the JAX CLI's p.error does
+    for flag in (["--export-streaming", "4"], ["--export-streams", "2"],
                  ["--export-stats", "0", "1"]):
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(SystemExit) as e:
             eval_cli.main(["--workdir", str(tmp_path), *flag])
+        assert e.value.code == 2
+        assert f"{flag[0]} requires --export-model" in capsys.readouterr().err
 
 
 def test_cli_cuda_without_gpu_raises(tmp_path):

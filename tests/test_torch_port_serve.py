@@ -6,7 +6,7 @@ the same calls on the same device), f32 and i16 stdin decode as the JAX
 server decodes them (`_to_f32` against `cpc_tpu.serve._to_f32`), and the
 JAX server's own `main`, run around a stand-in for its live stream that
 pushes into the port's extractor, writes the same stdout and stderr as the
-port's. The `--artifact` backend is not ported (ROADMAP.md A9) and raises.
+port's. The `--artifact` backend is held in tests/test_torch_port_export.py.
 """
 
 import io
@@ -167,8 +167,8 @@ def test_flag_errors(workdir, tmp_path):
         main(["--workdir", str(workdir), "--chunk-samples", "0"])
     with pytest.raises(SystemExit):   # one source, not both
         main(["--workdir", str(workdir), "--artifact", "a.stream"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        main(["--artifact", "a.stream"])
+    with pytest.raises(FileNotFoundError):   # the artifact backend loads
+        main(["--artifact", str(tmp_path / "a.pt2"), "--device", "cpu"])
     # a workdir with a config but no weights exits; one with no config too
     (tmp_path / "config.json").write_text(
         (workdir / "config.json").read_text())

@@ -252,7 +252,8 @@ SLICE_MODULES = [
     "cpc_tpu_torch.parallel.dp", "cpc_tpu_torch.data.flac",
     "cpc_tpu_torch.data.flac_encoder", "cpc_tpu_torch.data.packed",
     "cpc_tpu_torch.data.pack", "cpc_tpu_torch.train.supervisor",
-    "cpc_tpu_torch.utils", "cpc_tpu_torch.utils.profiling"]
+    "cpc_tpu_torch.utils", "cpc_tpu_torch.utils.profiling",
+    "cpc_tpu_torch.export"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cpc_tpu")
 
 

@@ -13,9 +13,11 @@ The augmentation's draws come from `torch.Generator`, so they cannot equal
 a polarity rate within 0.5 +- 0.03 is more than 3 standard deviations),
 its order exactly."""
 
+import ast
 import dataclasses
 import json
 import os
+import pathlib
 import socket
 import threading
 
@@ -452,3 +454,43 @@ def test_cli_has_every_option_of_the_jax_cli():
             {(d, v) for s, d, v in theirs if s == flag}, flag
     with pytest.raises(SystemExit):
         cli.build_argparser().parse_args(["--superv"])
+
+
+def test_cli_trains_under_torch_default_cudnn_settings(corpus, tmp_path,
+                                                        monkeypatch):
+    """Exact resume and the supervisor's restart were checked bit for bit on
+    the card under torch's default cuDNN settings, deterministic and
+    benchmark off (chip_smoke.py phases 23(d), 24(d), 24(g)), and rest on
+    them: no module of the port sets either, or asks for deterministic
+    algorithms, and the CLI, and so the supervisor's child, which is the
+    same CLI, trains under them. benchmark=True would pick each conv's
+    algorithm by timing, so two runs could sum in different orders."""
+    root = pathlib.Path(cli.__file__).resolve().parents[1]
+    found = []
+    for path in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            targets = (node.targets if isinstance(node, ast.Assign) else
+                       [node.target] if isinstance(
+                           node, (ast.AugAssign, ast.AnnAssign)) else [])
+            names = [t.attr for t in targets if isinstance(t, ast.Attribute)
+                     and t.attr in ("benchmark", "deterministic")]
+            if isinstance(node, ast.Call) and isinstance(
+                    node.func, ast.Attribute) and node.func.attr in (
+                        "use_deterministic_algorithms", "flags"):
+                names.append(node.func.attr)
+            found += [f"{path.relative_to(root)}:{node.lineno} {n}"
+                      for n in names]
+    assert found == []
+    seen = []
+    train = Trainer.train
+
+    def spy(self, *args, **kwargs):
+        seen.append((torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark))
+        return train(self, *args, **kwargs)
+    monkeypatch.setattr(Trainer, "train", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    assert cli.main([*TINY, "--data", corpus, "--workdir", str(tmp_path),
+                     "--steps", "1"]) == 0
+    assert seen == [(False, False)]
