@@ -244,9 +244,39 @@ Phases, in order; any failure exits non-zero:
    loop's rate beside `--workdir`'s; (b) and (c) with torch's default TF32
    settings in force, as a server process has them;
    (d) every exported graph calls aten, prims and operator functions only.
+26. the rings, which hold no kernel of their own (plain tensor code, as
+   the JAX package's are plain einsum): (a) `loss.ring` under data
+   parallelism: dp_global_negatives with negatives=all_steps (its other
+   loss flags kept: the JAX chooser refuses none of them) at batch 64,
+   bf16, on R = 2 and 4 ranks played by threads on the card, against the
+   same ranks gathering the pool (the all-steps kernels): loss, per-k
+   accuracy, grad_norm and the watched gradients at phase 23(b)'s DP_TOL,
+   the GRU kernels once a rank, no all-steps kernel on the ring;
+   (b) context parallelism at transformer_fast's widths (loss knobs at
+   their defaults, negatives=all_steps), ring and zigzag, at 64 x 20 480
+   on one NCCL rank and on 2 and 4 thread ranks and at 8 x 163 840 on 4,
+   against the single-device all-steps step with attn_impl=flash (the
+   attention and all-steps kernels) on the same batch, in the band of
+   phase 13's tolerances, each step's ms beside the single-device step's
+   (in turns), no kernel launched by a CP step; and at transformer_gar's
+   widths in fp32 with TF32 off on 4 thread ranks against its
+   single-device step at the JAX package's CP tolerances; (c) DP x CP on
+   2 x 2 thread ranks, fp32: audio -> loss with every parameter's
+   gradient, the full step, and the step with augmentation, each against
+   one device; (d) train.parallel=cp through the training CLI at a world
+   of one for 10 steps, then 5 + 5 resumed, bit-equal under the CLI's own
+   cuDNN settings;
+27. the three fp32 presets no other phase trains (baseline at batch 8,
+   maestro_scalogram, transformer_gar): 10 steps through the training CLI
+   (finite metrics; the GRU kernels once a step where the gar is a GRU,
+   nothing else), an extraction through the eval CLI from that workdir,
+   and one step on the card against the same step on the CPU, at
+   A11_TOL with TF32 off, then once more under torch's default TF32
+   settings (cuDNN's convs in TF32, as the CLI trains), reported.
 
 With `--dp-cards N` it runs data parallelism across N cards under NCCL
-instead, what one card cannot run (`dp_cards_main`).
+instead, what one card cannot run (`dp_cards_main`); with `--cp-cards N`
+context parallelism across N cards (`cp_cards_main`).
 
 It prints a JSON line of the kernels it checked, each with its launches on
 its main path, its error against its plain version, its time, its plain
@@ -258,8 +288,11 @@ launches a rank under data parallelism (`dp_launches`: the CLI's one-rank
 run of phase 23(d) for the GRU's and the fused heads' kernels, one step of
 phase 23(b) for the other paths' loss kernels) and its time at the DP
 shape (`dp_ms`, phase 23(c); null for a kernel off the DP path), its
-launches in phase 24(d)'s CLI run on the packed corpus (`feed_launches`);
-and, last, one JSON object naming the device.
+launches in phase 24(d)'s CLI run on the packed corpus (`feed_launches`),
+a rank's launches in phase 26(a)'s ring step (`ring_dp_launches`), the
+launches of phase 26(b)'s CP steps (`cp_launches`: none, the path is
+plain) and of phase 27's three CLI runs (`a11_launches`); and, last, one
+JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -267,6 +300,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -338,7 +372,9 @@ from cpc_tpu_torch.ops.infonce_fused import (_HeadsNllPlain,
                                              heads_nll_reference,
                                              heads_route, reduce_heads_nll)
 from cpc_tpu_torch.ops.scalogram import scalogram
-from cpc_tpu_torch.parallel import dp, multihost
+from cpc_tpu_torch.ops.ring_util import run_thread_ranks
+from cpc_tpu_torch.parallel import cp, dp, multihost
+from cpc_tpu_torch.parallel.mesh import groups_of, thread_meshes
 from cpc_tpu_torch.train import cli as train_cli
 from cpc_tpu_torch.train.checkpoint import CheckpointManager
 from cpc_tpu_torch.train.metrics import masked_crc32c
@@ -3826,6 +3862,626 @@ def dp_cards_main(n: int) -> None:
         "count": torch.cuda.device_count()}}))
 
 
+# ---------------------------------------------------------------- phase 26
+# (a) loss.ring under data parallelism: dp_global_negatives on the
+# all-steps pool, swept round the ranks. The JAX chooser refuses none of
+# the preset's other loss flags with all_steps (the fused heads are taken
+# for same_step only), so use_pallas, pallas_bf16 and fuse_heads stay: the
+# ring itself is fp32 tensor code whatever they say, and the gathered step
+# it is held against runs the all-steps kernels on the bf16 wire.
+RING_DP_SETS = ["model.loss.negatives=all_steps"]
+RING_DP_WORLDS = (2, 4)
+# (b)-(d) the CP step: its loss is always the ring's fp32 all-steps sweep,
+# so the loss knobs it would ignore go back to their defaults (it refuses
+# them otherwise, as the JAX package does)
+CP_SETS = ["model.loss.negatives=all_steps", "model.loss.use_pallas=false",
+           "model.loss.pallas_bf16=false", "model.loss.fuse_heads=false"]
+CP_WATCHED = ("gar.block0.attn.query.weight", "gar.in_proj.weight",
+              "prediction_heads.weight", "encoder.conv4.weight")
+# the CP cells: (batch, samples, ranks)
+CP_CELLS = [(64, 20_480, 1), (64, 20_480, 2), (64, 20_480, 4),
+            (8, 163_840, 4)]
+CP_FP32_RANKS = 4
+CP_TIMED_STEPS = 5
+CP_CLI_STEPS = 10
+# The bf16 CP step against the single-device all-steps step with
+# attn_impl=flash, the kernels whose numerics are the ring's (fp32 scores
+# and P on bf16 q, k, v, the output rounded once to bf16), and the plain
+# fp32 all-steps loss, the ring loss's own arithmetic: the two differ in
+# fp32 summation order and in where an activation rounds to bf16, as phase
+# 13's two steps do, and held at its tolerances but one: each rank's
+# weight gradient rounds to bf16 before the ranks' fp32 sum (as a DP
+# rank's dz does, phase 23(b)), so an entry below 1 may move by one bf16
+# rounding, 2**-8 (measured on an H100 80GB HBM3 at 700 W: the encoder's
+# last conv at R = 4, 1.25e-3).
+CP_BF16_TOL = dict(TRANSFORMER_STEP_TOL, grad=4e-3)
+# The all-steps kernels round delta = softmax - onehot to bf16, their
+# tensor cores' operand (`allsteps_nll_backward_reference`), where the ring
+# keeps it fp32, as the JAX ring does: in a bf16 model the kernels' step
+# then differs from the plain step by that rounding, carried on by the
+# heads and the gar into every gradient (measured on an H100 80GB HBM3 at
+# 700 W: 6 % of the heads' largest gradient under dp_global_negatives). A
+# ring step is held against the kernels' step at the plain step's own
+# distance from it (measured in the same run on the same inputs) plus the
+# ring's tolerance against the plain step (`banded`).
+# fp32 with TF32 off, at transformer_gar's widths: the JAX package's CP
+# tolerances (tests/test_ring_attention.py): loss 1e-5 relative with 1e-6
+# absolute, gradients 5e-5 relative with 5e-5 absolute; the accuracy
+# within one row a k of the single-device run (a near-tie may fall the
+# other way when the sums run in another order).
+CP_FP32_TOL = {"loss": (1e-5, 1e-6), "grad": (5e-5, 5e-5)}
+
+
+def on_thread_ranks(world: int, ctx: int, fn) -> list:
+    """fn(mesh) on `world` ranks played by threads on cuda:0, ctx of them
+    to a data row."""
+    meshes = thread_meshes(world, "cuda:0", ctx=ctx, timeout=600)
+    return run_thread_ranks(groups_of(meshes),
+                            [functools.partial(fn, m) for m in meshes],
+                            timeout=1200)
+
+
+def one_step(cfg, mesh, batch, watched, timed_steps=0):
+    """One train step of a model of `cfg` (weights from train.seed) on
+    `batch`: its metrics and the watched gradients that the update used
+    (the ranks' sum or mean, as the step makes it), on the host; then, with
+    `timed_steps`, that many more steps' median ms (CUDA sync; under a
+    mesh every rank steps together)."""
+    model = init_state(cfg, "cuda")
+    steps = make_step_fns(cfg, model, mesh)
+    seen = {}
+    update = steps.optimizer.step
+
+    def spy(grads):
+        seen.update({k: grads[k].detach().float().cpu() for k in watched})
+        update(grads)
+    steps.optimizer.step = spy
+    m = steps.train_step(batch)
+    metrics = {k: v.float().cpu() for k, v in m.items()}
+    steps.optimizer.step = update
+    times = []
+    for _ in range(timed_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return metrics, seen, statistics.median(times) if times else None
+
+
+def step_errors(got, want) -> dict:
+    """Phase 7's errors of a step (metrics, grads) against another."""
+    (m, g), (w, wg) = got, want
+    errs = {"loss": abs(m["loss"].item() - w["loss"].item())
+            / abs(w["loss"].item()),
+            "acc": (m["acc"] - w["acc"]).abs().max().item(),
+            "grad_norm": abs(m["grad_norm"].item() - w["grad_norm"].item())
+            / w["grad_norm"].item()}
+    for k in wg:
+        errs[f"grad {k}"] = rel_err(g[k], wg[k])
+        errs[f"grad_of_max {k}"] = rel_to_max(g[k], wg[k])
+    return errs
+
+
+def banded(errs_plain: dict, tols: dict) -> dict:
+    """A bound for each error: the plain step's own error against the
+    kernels' step, plus `tols`."""
+    return {k: e + tols[k.split()[0]] for k, e in errs_plain.items()}
+
+
+def held_errors(label: str, errs: dict, tols: dict) -> None:
+    print(f"{label}: errors {errs} (tolerances {tols})", flush=True)
+    for k, e in errs.items():
+        bound = tols[k] if k in tols else tols[k.split()[0]]
+        check(math.isfinite(e) and e <= bound, f"{label}: {k} error {e}")
+
+
+def counts_now() -> dict:
+    return {k: fn.launches for k, fn in COUNTED.items()}
+
+
+def zero_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def phase26a_ring_dp(card: str) -> dict:
+    """loss.ring under data parallelism: dp_global_negatives with the
+    all-steps pool swept round R = 2 and 4 thread ranks on the card, bf16,
+    batch 64, against the same ranks gathering the pool: through the
+    all-steps kernels (the preset's use_pallas) and on the plain fp32 loss
+    (use_pallas=false, the ring's own arithmetic): loss, per-k accuracy,
+    grad_norm and the watched gradients at phase 23(b)'s DP_TOL against
+    the plain step, and against the kernels' at the plain step's own
+    distance from them plus DP_TOL (`banded`). Returns the ring run's
+    launches a rank."""
+    per_rank = {}
+    for world in RING_DP_WORLDS:
+        runs = {}
+        for label, sets in (("ring", ["model.loss.ring=true"]),
+                            ("gathered, kernels", []),
+                            ("gathered, plain", ["model.loss.use_pallas="
+                                                 "false"])):
+            cfg = apply_overrides(presets.dp_global_negatives(),
+                                  RING_DP_SETS + sets)
+            batch = torch.from_numpy(dp_batch(cfg)).cuda()
+            zero_counts()
+            res = on_thread_ranks(world, 1, lambda mesh: one_step(
+                cfg, mesh, batch[mesh.rows(len(batch))], DP_WATCHED)[:2])
+            runs[label] = res, counts_now()
+        ring_res, ring_n = runs["ring"]
+        kern_n = runs["gathered, kernels"][1]
+        want = {k: world for k in GRU_KERNELS}
+        print(f"ring dp (a): {world} thread ranks on cuda:0, "
+              f"dp_global_negatives + {RING_DP_SETS} (use_pallas, "
+              f"pallas_bf16 and fuse_heads kept: the JAX chooser refuses "
+              f"none of them with all_steps), loss.ring true; loss "
+              f"{ring_res[0][0]['loss'].item():.6f}; launches, ring "
+              f"{ {k: v for k, v in ring_n.items() if v} }, gathered "
+              f"through the kernels {  {k: v for k, v in kern_n.items() if v} }",
+              flush=True)
+        check(all(ring_n[k] == n for k, n in want.items())
+              and not any(v for k, v in ring_n.items() if k not in want),
+              f"ring dp launches {ring_n}")
+        check(kern_n["allsteps_nll_forward"] == world
+              and kern_n["allsteps_nll_backward"] == world,
+              f"gathered all-steps launches {kern_n}")
+        plain, kernels = (runs[k][0] for k in ("gathered, plain",
+                                              "gathered, kernels"))
+        for r, got in enumerate(ring_res):
+            held_errors(f"ring dp (a) rank {r} of {world} vs gathered, "
+                        f"plain", step_errors(got, plain[r]), DP_TOL)
+            band = banded(step_errors(plain[r], kernels[r]), DP_TOL)
+            held_errors(f"ring dp (a) rank {r} of {world} vs gathered, "
+                        f"kernels (bound: the plain step's error + DP_TOL)",
+                        step_errors(got, kernels[r]), band)
+        per_rank = {k: n // world for k, n in ring_n.items()}
+    return per_rank
+
+
+def cp_config(base: str, impl: str, batch: int, samples: int, ctx: int,
+              extra=()):
+    shape = ["train.parallel=cp"] if ctx else []
+    return apply_overrides(presets.by_name(base), [
+        *CP_SETS, f"model.ar.attn_impl={impl}", f"data.batch_size={batch}",
+        f"data.snippet_samples={samples}", *shape, *extra])
+
+
+def cp_run(cfg, ranks: int, ctx: int, batch, timed_steps=0):
+    """The CP step of `cfg` on `ranks` ranks (one NCCL rank for 1, else
+    threads on cuda:0), ctx to a data row; rank 0's result."""
+    if ranks == 1:
+        mesh = multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                                    device="cuda")
+        try:
+            check(dist.get_backend() == "nccl", "one NCCL rank")
+            return one_step(cfg, mesh, batch, CP_WATCHED, timed_steps)
+        finally:
+            multihost.shutdown()
+    return on_thread_ranks(ranks, ctx, lambda mesh: one_step(
+        cfg, mesh, batch, CP_WATCHED, timed_steps))[0]
+
+
+def phase26b_cp(card: str) -> dict:
+    """Context parallelism at transformer_fast's widths, ring and zigzag,
+    bf16, against the single-device all-steps step with attn_impl=flash on
+    the same seeded batch: on the plain fp32 loss (the ring's arithmetic)
+    at CP_BF16_TOL, and through the all-steps kernels at the plain step's
+    distance from them plus CP_BF16_TOL;
+    then at transformer_gar's widths in fp32 with TF32 off. Returns the CP
+    runs' launches (none: the ring is plain)."""
+    cp_counts = {}
+    for B, S, R in CP_CELLS:
+        refs = {label: cp_config("transformer_fast", "flash", B, S, 0, sets)
+                for label, sets in (
+                    ("kernels", ["model.loss.use_pallas=true",
+                                 "model.loss.pallas_bf16=true"]),
+                    ("plain", []))}
+        batch = torch.from_numpy(np.clip(np.random.default_rng(3)
+                                         .standard_normal((B, S)) * 3000,
+                                         -32768, 32767).astype(np.int16)
+                                 ).cuda()
+        zero_counts()
+        ref = {"kernels": one_step(refs["kernels"], None, batch, CP_WATCHED,
+                                   CP_TIMED_STEPS)}
+        ref_n = counts_now()
+        check(ref_n["allsteps_nll_forward"] == 1 + CP_TIMED_STEPS,
+              f"reference launches {ref_n}")
+        ref["plain"] = one_step(refs["plain"], None, batch, CP_WATCHED)
+        for impl in ("ring", "zigzag"):
+            cfg = cp_config("transformer_fast", impl, B, S, R)
+            zero_counts()
+            got = cp_run(cfg, R, R, batch, CP_TIMED_STEPS)
+            n = counts_now()
+            cp_counts = {k: cp_counts.get(k, 0) + v for k, v in n.items()}
+            label = (f"cp (b) {impl}, {B} x {S} (T {S // 160}), R = {R} "
+                     f"({'one NCCL rank' if R == 1 else 'thread ranks'}), "
+                     f"bf16")
+            held_errors(f"{label} vs one device, plain loss",
+                        step_errors(got[:2], ref["plain"][:2]), CP_BF16_TOL)
+            band = banded(step_errors(ref["plain"][:2], ref["kernels"][:2]),
+                          CP_BF16_TOL)
+            held_errors(f"{label} vs one device, the kernels' loss (bound: "
+                        f"the plain step's error + CP_BF16_TOL)",
+                        step_errors(got[:2], ref["kernels"][:2]), band)
+            print(f"{label} on {card}: the CP step {got[2]:.2f} ms against "
+                  f"the single-device step's {ref['kernels'][2]:.2f} ms "
+                  f"(attention and all-steps kernels; median of "
+                  f"{CP_TIMED_STEPS} each, CUDA sync, timed in turns; "
+                  f"thread ranks share one card, so this is the ring's "
+                  f"cost, not a speed-up); kernels launched by the CP runs "
+                  f"{ {k: v for k, v in n.items() if v} }", flush=True)
+            check(not any(n.values()), f"the CP step launched {n}")
+        ref_again = one_step(refs["kernels"], None, batch, CP_WATCHED,
+                             CP_TIMED_STEPS)
+        print(f"cp (b) {B} x {S}: the single-device step again "
+              f"{ref_again[2]:.2f} ms on {card}", flush=True)
+    # fp32 at transformer_gar's widths, TF32 off (main() turns it off)
+    B, S = presets.transformer_gar().data.batch_size, 20_480
+    ref_cfg = cp_config("transformer_gar", "xla", B, S, 0)
+    batch = torch.from_numpy(np.clip(np.random.default_rng(4).standard_normal(
+        (B, S)) * 3000, -32768, 32767).astype(np.int16)).cuda()
+    ref = one_step(ref_cfg, None, batch, CP_WATCHED)
+    for impl in ("ring", "zigzag"):
+        got = cp_run(cp_config("transformer_gar", impl, B, S, CP_FP32_RANKS),
+                     CP_FP32_RANKS, CP_FP32_RANKS, batch)
+        fp32_held(f"cp (b) {impl} fp32 transformer_gar {B} x {S}, R = "
+                  f"{CP_FP32_RANKS}", got[:2], ref[:2], B * (S // 160 - 12))
+    return cp_counts
+
+
+def fp32_held(label: str, got, want, rows_per_k: int) -> None:
+    """An fp32 CP result against one device at the JAX package's CP
+    tolerances (loss, grad_norm and gradients), the accuracy within one
+    row a k."""
+    (m, g), (w, wg) = got, want
+    (lr, la), (gr, ga) = CP_FP32_TOL["loss"], CP_FP32_TOL["grad"]
+    errs = {"loss": abs(m["loss"].item() - w["loss"].item()),
+            "grad_norm": abs(m["grad_norm"].item()
+                             - w["grad_norm"].item()),
+            "acc": (m["acc"] - w["acc"]).abs().max().item()}
+    bounds = {"loss": la + lr * abs(w["loss"].item()),
+              "grad_norm": ga + gr * abs(w["grad_norm"].item()),
+              "acc": 1.0 / rows_per_k}
+    for k in wg:
+        errs[f"grad {k}"] = ((g[k] - wg[k]).abs()
+                             - gr * wg[k].abs()).max().item()
+        bounds[f"grad {k}"] = ga
+    print(f"{label} (TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+          f"cuDNN {torch.backends.cudnn.allow_tf32}): loss "
+          f"{m['loss'].item():.7f} vs {w['loss'].item():.7f}; |error| "
+          f"(for a gradient, |error| - {gr:.0e} |want|) {errs} against "
+          f"{bounds}", flush=True)
+    for k, e in errs.items():
+        check(math.isfinite(e) and e <= bounds[k], f"{label}: {k} {e}")
+
+
+def phase26c_dpcp(card: str) -> None:
+    """DP x CP on 2 x 2 thread ranks at transformer_gar's widths, fp32:
+    audio -> loss (cp_cpc_loss_from_audio, every parameter's gradient),
+    the full step, and the step with augmentation, each against one
+    device."""
+    B, S = presets.transformer_gar().data.batch_size, 20_480
+    rows = B * (S // 160 - 12)
+    dpcp = ["train.parallel=dpcp", "train.mesh_shape=2,2",
+            "train.mesh_axes=data,ctx"]
+    batch = torch.from_numpy(np.clip(np.random.default_rng(5).standard_normal(
+        (B, S)) * 3000, -32768, 32767).astype(np.int16)).cuda()
+    cfg = cp_config("transformer_gar", "ring", B, S, 0, dpcp)
+    ref_cfg = cp_config("transformer_gar", "xla", B, S, 0)
+    # audio -> loss: every parameter's gradient, no update
+    ref_model = init_state(ref_cfg, "cuda")
+    ref_loss, ref_m = make_step_fns(ref_cfg, ref_model).loss_fn(ref_model,
+                                                                batch)
+    ref_loss.backward()
+    want = ({"loss": ref_loss.detach().cpu(), "acc": ref_m["acc"].cpu(),
+             "grad_norm": global_norm(p.grad for p in ref_model.parameters()
+                                      ).cpu()},
+            {k: p.grad.cpu() for k, p in ref_model.named_parameters()})
+
+    def audio_loss(mesh):
+        model = init_state(cfg, "cuda")
+        x = cp.shard(device_prepare(batch, cfg.data.normalize), mesh, "ctx",
+                     "data")
+        loss, m = cp.cp_cpc_loss_from_audio(model, x, mesh=mesh,
+                                            dp_axis="data")
+        with torch.autograd.set_multithreading_enabled(False):
+            loss.backward()
+        return loss.detach().cpu(), m["acc"].cpu(), {
+            k: p.grad.cpu() for k, p in model.named_parameters()}
+    res = on_thread_ranks(4, 2, audio_loss)
+    grads = {k: sum(r[2][k] for r in res) for k in res[0][2]}
+    got = ({"loss": res[0][0], "acc": res[0][1],
+            "grad_norm": global_norm(grads.values())}, grads)
+    fp32_held("dpcp (c) audio -> loss, 2 x 2 thread ranks", got, want, rows)
+    for aug in (False, True):
+        extra = ["data.augment=true"] if aug else []
+        got = on_thread_ranks(4, 2, lambda mesh: one_step(
+            apply_overrides(cfg, extra), mesh, batch, CP_WATCHED))[0]
+        ref = one_step(apply_overrides(ref_cfg, extra), None, batch,
+                       CP_WATCHED)
+        fp32_held(f"dpcp (c) the full step{' with augmentation' * aug}, "
+                  f"2 x 2 thread ranks", got[:2], ref[:2], rows)
+
+
+def phase26d_cli(card: str) -> None:
+    """train.parallel=cp through the training CLI at a world of one:
+    transformer_fast's widths, CP_CLI_STEPS steps (finite metrics, no
+    kernel launched: the CP path is plain), then 5 + 5 resumed, bit-equal
+    under the CLI's own cuDNN settings."""
+    sets = [a for s in CP_SETS + ["train.parallel=cp",
+                                  "model.ar.attn_impl=ring",
+                                  "train.log_every=1"]
+            for a in ("--set", s)]
+    with tempfile.TemporaryDirectory() as root:
+        straight, resumed = (os.path.join(root, n) for n in ("a", "b"))
+        train_cli_run("train.parallel=cp", "transformer_fast", sets,
+                      CP_CLI_STEPS, {}, workdir=straight)
+        corpus = os.path.join(straight, "synthetic_corpus")
+        for steps, extra in ((5, []), (CP_CLI_STEPS, ["--resume"])):
+            rc = train_cli.main(["--config", "transformer_fast", "--data",
+                                 corpus, "--workdir", resumed, "--steps",
+                                 str(steps), *sets, *extra])
+            check(rc == 0, f"cp cli leg of {steps} steps returned {rc}")
+        ckpts, differ, worst = resumed_against_straight(straight, resumed)
+        print(f"cp (d): {CP_CLI_STEPS} CLI steps straight vs 5 + "
+              f"{CP_CLI_STEPS - 5} resumed (train.parallel=cp, world 1, "
+              f"{cudnn_settings()}): step {CP_CLI_STEPS} checkpoints' "
+              f"tensors that differ: {differ}, largest absolute difference "
+              f"{worst:.3e}", flush=True)
+        check(not differ and ckpts[0]["meta"] == ckpts[1]["meta"],
+              f"the resumed CP run's checkpoint differs: {differ}")
+
+
+def phase26_cp(card: str) -> tuple:
+    """Phase 26: the ring InfoNCE under DP, context parallelism, DP x CP,
+    the CLI. Returns (ring DP launches a rank, CP launches)."""
+    ring_dp = phase26a_ring_dp(card)
+    cp_counts = phase26b_cp(card)
+    phase26c_dpcp(card)
+    phase26d_cli(card)
+    return ring_dp, cp_counts
+
+
+# ---------------------------------------------------------------- phase 27
+# the three fp32 presets no phase trained: their data and the kernels a
+# training step launches once each (the GRU always runs gru_scan; the plain
+# loss and attention launch none)
+A11_PRESETS = {"baseline": ("synthetic", GRU_KERNELS),
+               "maestro_scalogram": ("synthetic-music", GRU_KERNELS),
+               "transformer_gar": ("synthetic", ())}
+# One fp32 step on the card against the same step on the CPU, TF32 off:
+# the same arithmetic in another summation order (cuDNN's and cuBLAS's
+# against oneDNN's and MKL's; the GRU kernel against its plain recurrence):
+# loss and grad_norm relative, gradients relative to max(1, max |grad|)
+# and to their largest entry, the accuracy within one row a k. The first
+# conv's weight gradient is a sum of B x T_out = 32 768 products an entry,
+# and a reordered sum of n fp32 terms may move by about n x 2**-24 = 2e-3
+# of their scale (measured on an H100 80GB HBM3 at 700 W: 1.3e-3 to 1.7e-3
+# of the largest entry): grad_of_max takes phase 7's 1e-2.
+A11_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-4,
+           "grad_of_max": 1e-2, "acc": 1.0}
+
+
+def a11_step(cfg, device, batch, watched):
+    model = init_state(cfg, device)
+    steps = make_step_fns(cfg, model)
+    loss, m = steps.loss_fn(model, batch.to(device))
+    loss.backward()
+    grads = {k: p.grad.float().cpu() for k, p in model.named_parameters()}
+    return ({"loss": loss.detach().float().cpu(), "acc": m["acc"].cpu(),
+             "grad_norm": global_norm(grads.values())},
+            {k: grads[k] for k in watched})
+
+
+def phase27_fp32_presets(card: str) -> dict:
+    """A11: baseline (batch 8), maestro_scalogram and transformer_gar, fp32,
+    through the training CLI for 10 steps (finite metrics, launches
+    counted), an extraction through the eval CLI from that workdir, and one
+    step on the card against the same step on the CPU (A11_TOL, TF32 off;
+    then once more under torch's default TF32 settings, as the CLI trains,
+    reported). Returns the launches of the three CLI runs, summed."""
+    total = {k: 0 for k in COUNTED}
+    for name, (data, kernels) in A11_PRESETS.items():
+        cfg = presets.by_name(name)
+        with tempfile.TemporaryDirectory() as wd:
+            n = train_cli_run(f"A11 {name}", name, [], TRAIN_STEPS,
+                              {k: 1 for k in kernels}, workdir=wd, data=data)
+            total = {k: total[k] + n[k] for k in total}
+            wav = os.path.join(wd, "x.wav")
+            write_wav(wav, np.random.default_rng(6).standard_normal(
+                4 * cfg.data.snippet_samples).astype(np.float32) * 0.1,
+                cfg.data.sample_rate)
+            out = os.path.join(wd, "features.npz")
+            line, got, wall = eval_cli_run(["--extract", wav, "--workdir", wd,
+                                            "--out", out])
+            with np.load(out) as f:
+                feats = {k: f[k] for k in f.files}
+            shapes = {k: v.shape for k, v in feats.items()}
+            print(f"A11 {name}: extraction through the eval CLI in "
+                  f"{wall:.2f} s: {line}; arrays {shapes}; launches {got}",
+                  flush=True)
+            check(line["checkpoint_step"] == TRAIN_STEPS
+                  and all(np.isfinite(v).all() for v in feats.values()),
+                  f"A11 {name} extraction: {line}")
+            check(set(got) == set(kernels[:1]),
+                  f"A11 {name} extraction launched {got}")
+        B, S = cfg.data.batch_size, cfg.data.snippet_samples
+        batch = torch.from_numpy(np.clip(np.random.default_rng(7)
+                                         .standard_normal((B, S)) * 3000,
+                                         -32768, 32767).astype(np.int16))
+        names = [k for k, _ in init_state(cfg).named_parameters()]
+        # the first encoder weight, the gar's first weight, the heads'
+        watched = [next(k for k in names if k.startswith(part)
+                        and k.endswith(("weight", "wh")))
+                   for part in ("encoder.", "gar.")] + [
+            "prediction_heads.weight"]
+        cpu = a11_step(cfg, "cpu", batch, watched)
+        T = S // cfg.model.encoder.total_downsample
+        rows = B * (T - cfg.model.loss.prediction_steps)
+        for tf32 in (False, True):
+            # TF32 off, then torch's defaults (cuDNN's convs in TF32)
+            with forced("allow_tf32", tf32, module=torch.backends.cudnn):
+                card_step = a11_step(cfg, "cuda", batch, watched)
+            errs = step_errors(card_step, cpu)
+            errs["acc"] = round(errs["acc"] * rows, 3)  # rows a k
+            flags = (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+                     f"cuDNN {tf32}")
+            label = f"A11 {name}: one step on the card ({flags}) vs the CPU"
+            if not tf32:
+                held_errors(label, errs, A11_TOL)
+            else:
+                over = {k: e for k, e in errs.items()
+                        if e > A11_TOL[k.split()[0]]}
+                print(f"{label} (torch's default TF32 settings, reported): "
+                      f"errors {errs} (acc in rows a k); beyond A11_TOL: "
+                      f"{over or 'none'}", flush=True)
+    return total
+
+
+# ------------------------------------------------------------ --cp-cards N
+CP_CARDS_STEPS = 8
+# fp32, N NCCL ranks against one process through the CLI: the same
+# arithmetic in another order (the ring's chunked sums, the halo convs over
+# shards), held over the first CP_CARDS_HELD steps as --dp-cards holds its
+# trajectory.
+CP_CARDS_TOL, CP_CARDS_HELD = 1e-5, 5
+
+
+def cp_p2p_main(argv) -> None:
+    """One rank of `--cp-cards`' look at the ring's transport:
+    `chip_smoke.py --cp-p2p-rank R --cp-port P --cp-world N`. A CP step of
+    transformer_fast's widths (bf16, 64 x 20 480, ring attention) over N
+    NCCL ranks, one a card: the step's median ms, then one step with every
+    ring transfer and the gradients' all_reduce timed between two CUDA
+    syncs. Prints one JSON line."""
+    from cpc_tpu_torch.ops.ring_util import Ring
+    args = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(args["--cp-p2p-rank"]), int(args["--cp-world"])
+    mesh = multihost.initialize(f"127.0.0.1:{args['--cp-port']}", world,
+                                rank, device="cuda")
+    try:
+        cfg = cp_config("transformer_fast", "ring", 64, 20_480, world)
+        batch = torch.from_numpy(dp_batch(cfg)).to(mesh.device)
+        model = init_state(cfg, mesh.device)
+        steps = make_step_fns(cfg, model, mesh)
+        for _ in range(3):
+            steps.train_step(batch)
+        times = []
+        for _ in range(CP_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps.train_step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        spent = {"permute": [], "all_reduce": [], "bytes": 0}
+        real_permute, real_sum = Ring.permute, Ring.all_reduce
+
+        def timed(kind, real):
+            def call(self, x, *rest):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(self, x, *rest)
+                torch.cuda.synchronize()
+                spent[kind].append((time.perf_counter() - t0) * 1e3)
+                if kind == "permute":
+                    spent["bytes"] += x.numel() * x.element_size()
+                return out
+            return call
+        Ring.permute = timed("permute", real_permute)
+        Ring.all_reduce = timed("all_reduce", real_sum)
+        try:
+            steps.train_step(batch)
+        finally:
+            Ring.permute, Ring.all_reduce = real_permute, real_sum
+        print(json.dumps({
+            "rank": rank, "world": world, "step_ms": statistics.median(times),
+            "transfers": len(spent["permute"]),
+            "p2p_ms": sum(spent["permute"]),
+            "all_reduces": len(spent["all_reduce"]),
+            "all_reduce_ms": sum(spent["all_reduce"]),
+            "p2p_bytes": spent["bytes"]}), flush=True)
+    finally:
+        multihost.shutdown()
+
+
+def cp_cards_main(n: int) -> None:
+    """`chip_smoke.py --cp-cards N`: context parallelism across N cards
+    under NCCL. transformer_gar (fp32, all-steps) through the training CLI
+    on N processes, one a card, with train.parallel=cp (ctx N) and then
+    dpcp (2 x N/2), against one process's ordinary step on the same
+    batches: the losses of the first CP_CARDS_HELD steps within
+    CP_CARDS_TOL (relative); then the ring's P2P time a step of a bf16
+    transformer_fast CP step on the N cards (`cp_p2p_main`)."""
+    check(torch.cuda.is_available() and torch.cuda.device_count() >= n
+          and n % 2 == 0, f"--cp-cards {n} needs an even {n} CUDA GPUs")
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    print(f"gpus: {cards.strip().splitlines()}", flush=True)
+    _build.load_library()  # once, before the ranks start
+    sets = [a for s in CP_SETS + ["train.log_every=1"] for a in ("--set", s)]
+    plan = [("one process, train.parallel=dp", 1, []),
+            ("train.parallel=cp", n, ["--set", "train.parallel=cp"]),
+            ("train.parallel=dpcp", n,
+             ["--set", "train.parallel=dpcp", "--set",
+              f"train.mesh_shape=2,{n // 2}", "--set",
+              "train.mesh_axes=data,ctx"])]
+    losses = {}
+    with tempfile.TemporaryDirectory() as root:
+        corpus = os.path.join(root, "corpus")
+        generate_synthetic_corpus(corpus, num_speakers=8,
+                                  files_per_speaker=3, seconds_per_file=4.0,
+                                  seed=0)
+        for i, (label, procs, extra) in enumerate(plan):
+            wd = os.path.join(root, str(i))
+            cmd = [sys.executable, "-m", "cpc_tpu_torch.train", "--config",
+                   "transformer_gar", "--data", corpus, "--workdir", wd,
+                   "--steps", str(CP_CARDS_STEPS), *sets, *extra]
+            port = free_port()
+            cmds = [cmd] if procs == 1 else [
+                cmd + ["--coordinator", f"127.0.0.1:{port}",
+                       "--num-processes", str(procs), "--process-id",
+                       str(r)] for r in range(procs)]
+            t0 = time.perf_counter()
+            run_ranks(cmds, timeout=900)
+            with open(os.path.join(wd, "metrics.jsonl")) as f:
+                losses[label] = [r["loss"] for r in map(json.loads, f)
+                                 if r["prefix"] == "train"]
+            print(f"cp cards: {label}, {procs} process(es), "
+                  f"{CP_CARDS_STEPS} steps in {time.perf_counter() - t0:.1f}"
+                  f" s (start-up included); losses {losses[label]}",
+                  flush=True)
+        one = losses[plan[0][0]]
+        for label, _, _ in plan[1:]:
+            errs = [abs(b - a) / abs(a) for a, b in zip(one, losses[label])]
+            held = max(errs[:CP_CARDS_HELD])
+            print(f"cp cards: fp32 transformer_gar, {label} on {n} NCCL "
+                  f"ranks vs one process: relative errors by step "
+                  f"{[f'{e:.1e}' for e in errs]}, the first {CP_CARDS_HELD} "
+                  f"held: {held:.3e} (tol {CP_CARDS_TOL:.0e})", flush=True)
+            check(len(losses[label]) == CP_CARDS_STEPS
+                  and held <= CP_CARDS_TOL, f"{label} trajectory {errs}")
+    port = free_port()
+    texts = run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--cp-p2p-rank", str(r),
+          "--cp-port", str(port), "--cp-world", str(n)] for r in range(n)],
+        timeout=600)
+    said = [json.loads(line) for t in texts for line in t.splitlines()
+            if line.startswith("{")]
+    print(f"cp cards: the ring on {n} cards ({cards.splitlines()[0]}), a "
+          f"bf16 transformer_fast CP step (64 x 20 480, ring attention): "
+          f"each rank's step ms, and its transfers, their bytes and ms and "
+          f"the gradients' all_reduce ms in one step timed transfer by "
+          f"transfer between CUDA syncs: {said}", flush=True)
+    check(len(said) == n, f"{len(said)} ranks reported")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+
 def main() -> None:
     # 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false; "
@@ -3967,6 +4623,14 @@ def main() -> None:
         # --artifact
         phase25_export(card, workdir)
 
+    # 26. the ring InfoNCE under DP, context parallelism (ring and zigzag,
+    # one NCCL rank and thread ranks on the card, bf16 and fp32), DP x CP
+    # on 2 x 2 thread ranks, train.parallel=cp through the CLI
+    ring_dp_launches, cp_launches = phase26_cp(card)
+
+    # 27. the three fp32 presets no phase trained (A11)
+    a11_launches = phase27_fp32_presets(card)
+
     sources = {
         "gru_scan": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:57"),
         "gru_scan_backward": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:82"),
@@ -4000,7 +4664,9 @@ def main() -> None:
         "source": f"cpc_tpu_torch/csrc/{src}", "replaces": tpu,
         "launches": counts[name], **{k: measured[name][k] for k in keys},
         "dp_launches": dp_launches.get(name, 0), "dp_ms": dp_ms.get(name),
-        "feed_launches": feed_launches[name]}
+        "feed_launches": feed_launches[name],
+        "ring_dp_launches": ring_dp_launches[name],
+        "cp_launches": cp_launches[name], "a11_launches": a11_launches[name]}
         for name, (src, tpu) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4014,5 +4680,9 @@ if __name__ == "__main__":
         dp_collectives_main(sys.argv[1:])
     elif "--dp-cards" in sys.argv:
         dp_cards_main(int(sys.argv[sys.argv.index("--dp-cards") + 1]))
+    elif "--cp-p2p-rank" in sys.argv:
+        cp_p2p_main(sys.argv[1:])
+    elif "--cp-cards" in sys.argv:
+        cp_cards_main(int(sys.argv[sys.argv.index("--cp-cards") + 1]))
     else:
         main()

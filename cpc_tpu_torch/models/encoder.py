@@ -20,8 +20,19 @@ averages, so training and eval compute the same); activation relu | gelu
 activation) block in the backward through `torch.utils.checkpoint`; and
 `use_pallas`, which sends the whole pyramid to the hand-written CUDA
 kernels of `ops/conv_cuda.py` (SAME padding, no norm, relu only; the
-parameters are the same on both routes). Waiting (ROADMAP.md A10): the
-context-parallel halo path.
+parameters are the same on both routes).
+
+Under context parallelism (`parallel/cp.py`) the waveform's time axis is
+sharded over the ranks of a ring, and `_cp_forward` runs the same layers
+on this rank's shard: `_cp_layer` first swaps each layer's SAME-padding
+halo with the ring's neighbours (flax's (total // 2, rest) split of
+max(k - s, 0) samples, the left part from the rank before, the right part
+from the rank after; zeros at rank 0's left and rank R-1's right), then
+convolves without padding. The halo's gradient goes back to the rank it
+came from (`ops.ring_util.ppermute`), and a remat recompute swaps it
+again. A group or batch norm takes its statistics over the whole time
+axis (a sum over the ring); a layer norm is per position. SAME padding and
+the plain route only, as in the JAX package.
 
 `ScalogramEncoder` ports the JAX `ScalogramEncoder`: the log-power
 scalogram of `ops/scalogram.py` in fp32, then a Conv2d stack over (time,
@@ -45,6 +56,7 @@ from cpc_tpu_torch.config import EncoderConfig
 from cpc_tpu_torch.models._init import Dense, lecun_normal_
 from cpc_tpu_torch.ops.conv_cuda import (conv1d, fused_conv_encoder,
                                          same_padding)
+from cpc_tpu_torch.ops.ring_util import ppermute, psum, ring_perm
 from cpc_tpu_torch.ops.scalogram import scalogram
 
 _ACTIVATIONS = {
@@ -67,7 +79,12 @@ class _Norm(nn.Module):
     | batch | B and `rest` of the live batch, correction=0   | 1e-5 |
 
     The batch norm keeps no running averages, so training and eval compute
-    the same (the JAX package's `_BatchStatsNorm`)."""
+    the same (the JAX package's `_BatchStatsNorm`). With a `ring` (the
+    time axis sharded over its ranks) the group and batch statistics span
+    the ring: the group norm's means of x and x^2 are averaged over the
+    ranks and var = max(0, E[x^2] - E[x]^2), as flax's GroupNorm computes
+    under an axis name; the batch norm's sum and squared deviations are
+    summed over the ranks, as `_BatchStatsNorm` computes under one."""
 
     def __init__(self, ch: int, kind: str, dtype, param_dtype):
         super().__init__()
@@ -75,8 +92,10 @@ class _Norm(nn.Module):
         self.weight = nn.Parameter(torch.ones(ch, dtype=param_dtype))
         self.bias = nn.Parameter(torch.zeros(ch, dtype=param_dtype))
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, ring=None) -> torch.Tensor:
         x, scale, bias = h.float(), self.weight.float(), self.bias.float()
+        if ring is not None and self.kind != "layer":
+            return self._ring_stats(x, scale, bias, ring).to(self.dtype)
         if self.kind == "layer":
             y = F.layer_norm(x.movedim(1, -1), x.shape[1:2], scale, bias,
                              1e-6).movedim(-1, 1)
@@ -89,6 +108,25 @@ class _Norm(nn.Module):
             per_channel = (-1,) + (1,) * (x.dim() - 2)
             y = y * scale.view(per_channel) + bias.view(per_channel)
         return y.to(self.dtype)
+
+    def _ring_stats(self, x, scale, bias, ring):
+        per_channel = (-1,) + (1,) * (x.dim() - 2)
+        if self.kind == "group":
+            B, C = x.shape[:2]
+            g = x.reshape(B, min(32, C), -1)
+            mus = psum(torch.stack([g.mean(dim=-1), (g * g).mean(dim=-1)]),
+                       ring) / ring.size
+            mean, var = mus[0], torch.clamp(mus[1] - mus[0] ** 2, min=0.0)
+            y = ((g - mean[..., None]) * torch.rsqrt(var[..., None] + 1e-6)
+                 ).reshape(x.shape)
+        else:
+            red = (0, *range(2, x.dim()))
+            n = float(x.numel() // x.shape[1] * ring.size)
+            mean = psum(x.sum(dim=red, keepdim=True), ring) / n
+            var = psum(((x - mean) ** 2).sum(dim=red, keepdim=True),
+                       ring) / n
+            y = (x - mean) * torch.rsqrt(var + 1e-5)
+        return y * scale.view(per_channel) + bias.view(per_channel)
 
 
 class _Conv(nn.Module):
@@ -154,6 +192,56 @@ class ConvEncoder(nn.Module):
             h = getattr(self, f"norm{i}")(h)
         return self.activation(h)
 
+    def _cp_layer(self, h: torch.Tensor, i: int, ring) -> torch.Tensor:
+        """The CP twin of _layer on this rank's (B, C, T_loc) shard: swap
+        the layer's SAME-padding halo with the ring's neighbours, then
+        convolve without padding."""
+        cfg = self.config
+        k, s = cfg.kernels[i], cfg.strides[i]
+        pad = max(k - s, 0)
+        pad_l, pad_r = pad // 2, pad - pad // 2
+        R, me = ring.size, ring.index
+        parts = []
+        if pad_l:
+            left = ppermute(h[..., -pad_l:], ring, ring_perm(R))
+            parts.append(_zeroed(left, me == 0))
+        parts.append(h)
+        if pad_r:
+            right = ppermute(h[..., :pad_r], ring,
+                             [((j + 1) % R, j) for j in range(R)])
+            parts.append(_zeroed(right, me == R - 1))
+        h = torch.cat(parts, dim=-1) if len(parts) > 1 else h
+        conv = getattr(self, f"conv{i}")
+        h = conv1d(h, conv.weight.to(self.dtype), conv.bias.to(self.dtype), s)
+        if cfg.norm != "none":
+            h = getattr(self, f"norm{i}")(h, ring)
+        return self.activation(h)
+
+    def _cp_forward(self, x: torch.Tensor, ring) -> torch.Tensor:
+        """This rank's shard of the waveform, (B, S_loc) or (B, S_loc, 1),
+        -> its shard of z (B, S_loc // prod(strides), C), under context
+        parallelism over `ring`."""
+        cfg = self.config
+        if cfg.padding != "SAME" or cfg.use_pallas:
+            raise ValueError(
+                "CP encoder requires padding='SAME' and use_pallas=False "
+                f"(got padding={cfg.padding!r}, use_pallas={cfg.use_pallas})")
+        if x.dim() == 3:
+            x = x[..., 0]
+        stride_prod = math.prod(cfg.strides)
+        if x.shape[1] % stride_prod:
+            raise ValueError(
+                f"CP encoder: local T {x.shape[1]} must divide by "
+                f"prod(strides)={stride_prod}")
+        h = x.to(self.dtype)[:, None, :]
+        for i in range(len(cfg.kernels)):
+            if cfg.remat and torch.is_grad_enabled():
+                h = checkpoint(self._cp_layer, h, i, ring,
+                               use_reentrant=False)
+            else:
+                h = self._cp_layer(h, i, ring)
+        return h.transpose(1, 2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         if x.dim() == 3:
@@ -182,6 +270,14 @@ class ConvEncoder(nn.Module):
             else:
                 h = self._layer(h, i)
         return h.transpose(1, 2)  # (B, T', C)
+
+
+def _zeroed(x: torch.Tensor, zero: bool) -> torch.Tensor:
+    """x, or zeros in its place where `zero`: by arithmetic, so that the
+    tensor stays in the graph and its sender's backward still runs."""
+    flag = torch.tensor(zero, device=x.device)
+    return torch.where(flag, torch.zeros((), dtype=x.dtype, device=x.device),
+                       x)
 
 
 class ScalogramEncoder(nn.Module):

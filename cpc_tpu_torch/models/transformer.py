@@ -22,7 +22,15 @@ c (B, T, d_ar), strictly causal.
     fp32 model under either, their own forward and the pair of dQ and
     dK/dV kernels (`ops.attention_cuda.attention_route` names them). No
     dropout (the kernels have none).
-  * 'ring' | 'zigzag' (context parallelism) are not ported: ROADMAP.md A10.
+  * 'ring' | 'zigzag' (context parallelism): z is this rank's time shard
+    and attention runs `ops.attention_ring.ring_causal_mha` or
+    `ops.attention_zigzag.zigzag_causal_mha` over the ring of the mesh's
+    `cp_axis` (`RingSelfAttention`); the positional table is read at the
+    shard's global offset, and R * T_loc must not exceed max_len. The
+    forward must run inside `ops.ring_util.axis_env(mesh)`, as the JAX
+    module must run inside shard_map: `parallel/cp.py` sets it. Their
+    scores are fp32 products scaled by Dh**-0.5 with -1e30 masks, as the
+    JAX ring computes them; no dropout.
 
 Every impl has the same parameters (`SelfAttention`'s query, key, value and
 out projections), so one `state_dict` loads under each. Where PyTorch's
@@ -58,6 +66,9 @@ from torch.utils.checkpoint import checkpoint
 from cpc_tpu_torch.config import ArConfig
 from cpc_tpu_torch.models._init import Dense
 from cpc_tpu_torch.ops.attention_cuda import flash_causal_mha
+from cpc_tpu_torch.ops.attention_ring import ring_causal_mha
+from cpc_tpu_torch.ops.attention_zigzag import zigzag_causal_mha
+from cpc_tpu_torch.ops.ring_util import current_mesh
 
 ATTN_IMPLS = ("xla", "flash", "flash16", "ring", "zigzag")
 
@@ -186,15 +197,52 @@ class FlashSelfAttention(SelfAttention):
         return self.out(o.reshape(h.shape)), k_cache, v_cache
 
 
+class RingSelfAttention(SelfAttention):
+    """Context-parallel causal self-attention over `SelfAttention`'s
+    parameters: q, k and v are this rank's (B, T_loc, H, Dh) shard and
+    attention sweeps the ring of the current mesh's `cp_axis`
+    (`ring_util.current_mesh`); `zigzag` takes the balanced schedule."""
+
+    def __init__(self, num_heads: int, d_model: int, dtype, param_dtype,
+                 cp_axis: str = "ctx", zigzag: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(num_heads, d_model, dtype, param_dtype,
+                         generator=generator)
+        self.cp_axis, self.zigzag = cp_axis, zigzag
+
+    def attend(self, q, k, v, train: bool, generator):
+        mha = zigzag_causal_mha if self.zigzag else ring_causal_mha
+        return mha(q, k, v, mesh=cp_mesh(self.cp_axis, "attention"),
+                   axis_name=self.cp_axis)
+
+
+def cp_mesh(axis: str, what: str):
+    """The mesh of the enclosing `ring_util.axis_env`, or a ValueError
+    naming the context-parallel entry points."""
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(
+            f"ar.attn_impl ring|zigzag ({what}) must be applied inside "
+            f"ring_util.axis_env(mesh) with mesh axis {axis!r} (z sharded "
+            f"along T): use cpc_tpu_torch.parallel.cp; a plain forward has "
+            f"no {axis!r} axis")
+    return mesh
+
+
 class _Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, mlp_ratio: int,
                  dropout_rate: float, dtype, param_dtype,
                  attn_impl: str = "xla",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 cp_axis: str = "ctx"):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.ln_attn = _LayerNorm(d_model, dtype, param_dtype)
-        if attn_impl in ("flash", "flash16"):
+        if attn_impl in ("ring", "zigzag"):
+            self.attn = RingSelfAttention(
+                num_heads, d_model, dtype, param_dtype, cp_axis=cp_axis,
+                zigzag=attn_impl == "zigzag", generator=generator)
+        elif attn_impl in ("flash", "flash16"):
             self.attn = FlashSelfAttention(
                 num_heads, d_model, dtype, param_dtype,
                 p_dtype="bfloat16" if attn_impl == "flash16" else "float32",
@@ -246,10 +294,6 @@ class CausalTransformer(nn.Module):
             raise ValueError(
                 f"ar.attn_impl must be 'xla'|'flash'|'flash16'|'ring'|"
                 f"'zigzag', got {cfg.attn_impl!r}")
-        if cfg.attn_impl in ("ring", "zigzag"):
-            raise NotImplementedError(
-                f"ar.attn_impl={cfg.attn_impl!r} (context parallelism) is "
-                f"not ported yet: ROADMAP.md A10")
         if cfg.attn_impl != "xla" and cfg.dropout > 0:
             raise ValueError(
                 f"ar.attn_impl={cfg.attn_impl!r} does not implement "
@@ -265,7 +309,7 @@ class CausalTransformer(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"block{i}", _Block(
                 cfg.d_ar, cfg.num_heads, cfg.mlp_ratio, cfg.dropout, dtype,
-                param_dtype, cfg.attn_impl, generator))
+                param_dtype, cfg.attn_impl, generator, cfg.cp_axis))
         self.final_norm = _LayerNorm(cfg.d_ar, dtype, param_dtype)
 
     def blocks(self):
@@ -276,9 +320,19 @@ class CausalTransformer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.config
         T = z.shape[1]
-        if T > cfg.max_len:
-            raise ValueError(f"sequence length {T} > max_len {cfg.max_len}")
-        x = self.in_proj(z) + self.pos_embed[:T].to(self.dtype)[None]
+        if cfg.attn_impl in ("ring", "zigzag"):
+            # z is this rank's time shard: positions are globally offset
+            ring = cp_mesh(cfg.cp_axis, "the transformer").ring(cfg.cp_axis)
+            if ring.size * T > cfg.max_len:
+                raise ValueError(f"global sequence {ring.size}*{T} > "
+                                 f"max_len {cfg.max_len}")
+            pos = self.pos_embed[ring.index * T:(ring.index + 1) * T]
+        else:
+            if T > cfg.max_len:
+                raise ValueError(f"sequence length {T} > max_len "
+                                 f"{cfg.max_len}")
+            pos = self.pos_embed[:T]
+        x = self.in_proj(z) + pos.to(self.dtype)[None]
         x = dropout(x, cfg.dropout, train, generator)
         live = train and cfg.dropout > 0
         for blk in self.blocks():

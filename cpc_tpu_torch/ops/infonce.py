@@ -25,8 +25,12 @@ package: preds[:, :Tp] and the pool are cast to the wire dtype (bf16 with
 runs the same-step kernels or hands over to the all-steps kernels of
 `ops.infonce_allsteps_cuda`. A CPU tensor runs their plain versions, a CUDA
 tensor the kernels, which run or raise. The fused heads + InfoNCE kernel
-takes c and the heads' weight, not preds, and is `ops.infonce_fused`. The
-JAX package's `ring=True` is not ported (ROADMAP.md A10).
+takes c and the heads' weight, not preds, and is `ops.infonce_fused`.
+
+`ring=True` with a mesh sweeps the all-steps pool round a ring of the
+ranks instead of gathering it (`ops.infonce_ring.ring_infonce_allsteps`,
+fp32 whatever `use_pallas` says, as in the JAX package): the loss and
+accuracy are then this rank's means, which the step averages.
 
 `WIRE_DTYPES`, `check_labels`, `on_device` and `tensor_core_route` are
 shared by the three kernel modules.
@@ -113,6 +117,7 @@ def infonce_loss_and_metrics(
     mesh=None,
     use_pallas: bool = False,
     pallas_bf16: bool = False,
+    ring: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """InfoNCE loss + per-k accuracy.
 
@@ -121,7 +126,8 @@ def infonce_loss_and_metrics(
     batch's first positive; mesh, in place of pool and shift, gathers every
     rank's z into the pool (cross-replica negatives); use_pallas routes
     scoring, softmax and argmax through the kernels, on a bf16 wire with
-    pallas_bf16. Returns (loss, {"loss", "acc" (K,), "acc_mean"})."""
+    pallas_bf16; ring, with a mesh, sweeps the all-steps pool round the
+    ranks. Returns (loss, {"loss", "acc" (K,), "acc_mean"})."""
     B, T, K, D = preds.shape
     Tp = T - K
     if negatives not in ("same_step", "all_steps"):
@@ -129,6 +135,12 @@ def infonce_loss_and_metrics(
     if mesh is not None and (pool is not None or shift):
         raise ValueError("a mesh gathers the pool: pass pool and shift, "
                          "or a mesh, not both")
+    if ring and mesh is not None:
+        if negatives != "all_steps":
+            raise ValueError("ring negatives exist for the all_steps pool; "
+                             "same_step already gathers only z")
+        from cpc_tpu_torch.ops.infonce_ring import ring_infonce_allsteps
+        return ring_infonce_allsteps(preds[:, :Tp], z, mesh=mesh)
     pool = z if pool is None else pool
     if use_pallas:
         from cpc_tpu_torch.ops.infonce_cuda import fused_infonce

@@ -19,7 +19,9 @@ ranks in fp32, rounds it once to z's dtype, and keeps this rank's rows:
 the transpose of JAX's all_gather, its psum_scatter. torch documents only
 `broadcast` and `all_reduce` for CUDA tensors under gloo, so the code that
 two gloo ranks sharing a card run is the code NCCL runs. All-gather and
-reduce-scatter under NCCL are later work (ROADMAP.md A5).
+reduce-scatter under NCCL are later work (ROADMAP.md A5). A mesh of thread
+ranks (`mesh.thread_meshes`) sums through its ThreadGroup
+(`ops.ring_util.all_reduce`).
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ import functools
 from typing import Callable, List, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 
+from cpc_tpu_torch.ops.ring_util import all_reduce
 from cpc_tpu_torch.parallel.mesh import ProcessMesh
 
 
@@ -40,7 +42,7 @@ class _GatherPool(torch.autograd.Function):
         rows = slice(mesh.rank * B, (mesh.rank + 1) * B)
         pool = z.new_zeros((mesh.size * B, *z.shape[1:]))
         pool[rows] = z
-        dist.all_reduce(pool, group=mesh.group)
+        all_reduce(pool, mesh.group, mesh.rank)
         ctx.mesh, ctx.rows, ctx.dtype = mesh, rows, z.dtype
         return pool
 
@@ -48,7 +50,7 @@ class _GatherPool(torch.autograd.Function):
     def backward(ctx, g):
         total = torch.empty(g.shape, dtype=torch.float32, device=g.device)
         total.copy_(g)
-        dist.all_reduce(total, group=ctx.mesh.group)
+        all_reduce(total, ctx.mesh.group, ctx.mesh.rank)
         return total[ctx.rows].to(ctx.dtype), None
 
 
@@ -65,7 +67,7 @@ def average(tensors: Sequence[torch.Tensor], mesh: ProcessMesh
     """The mean over the ranks of each tensor, in its dtype: one all_reduce
     of one fp32 buffer, divided by the world size."""
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
+    all_reduce(flat, mesh.group, mesh.rank)
     flat /= mesh.size
     out, at = [], 0
     for t in tensors:

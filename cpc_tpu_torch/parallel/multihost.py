@@ -19,18 +19,22 @@ on its own card (`parallel.dp`); this module gives the host side:
     rank assembles the same seeded batch and copies only its share to its
     card.
   * `host_local` copies tensors to the host for rank 0's checkpoint.
+  * `with_ctx` lays the world out as a (data, ctx) mesh for context
+    parallelism, forming each data row's and column's group.
   * `active`, `is_main`, `barrier`, `any_true` (a MAX all_reduce of a host
     flag: the trainer's agreement on preemption, so that every rank saves
     at the same step) and `shutdown`.
 
 Checkpoints, metrics and the resolved config are rank 0's to write, into a
 workdir every rank can read (`train.trainer`). One host only: under
-`--coordinator` a process's rank is its rank on the host; runs across hosts
-go through a launcher's `env://` and are untested (ROADMAP.md A10).
+`--coordinator` a process's rank is its rank on the host, and a launcher's
+`env://` that puts ranks on several hosts (LOCAL_WORLD_SIZE below
+WORLD_SIZE) raises, naming ROADMAP.md A10d.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import Iterable, Optional
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cpc_tpu_torch.ops.ring_util import ThreadGroup
 from cpc_tpu_torch.parallel.mesh import (ProcessMesh, check_one_rank_a_device,
                                          rank_device)
 
@@ -75,6 +80,11 @@ def initialize(coordinator_address: Optional[str] = None,
         local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a world of {world}")
+    if local_world != world:
+        raise NotImplementedError(
+            f"a run across hosts ({world} ranks, {local_world} on this "
+            f"host) is not ported yet (ROADMAP.md A10d): launch every rank "
+            f"on one host")
     n_devices = torch.cuda.device_count() if device.type == "cuda" else 0
     check_one_rank_a_device(backend, device, local_world, n_devices)
     share_host_threads(local_world)
@@ -89,6 +99,31 @@ def initialize(coordinator_address: Optional[str] = None,
         host_group = dist.new_group(backend="gloo", timeout=wait)
     return ProcessMesh(rank=rank, size=world, device=dev,
                        host_group=host_group)
+
+
+def with_ctx(mesh: ProcessMesh, ctx: int,
+             timeout: float = DEFAULT_TIMEOUT_S) -> ProcessMesh:
+    """`mesh` as a (data, ctx) mesh with ctx ranks to a data row, flattened
+    data-major. Where both axes exceed 1 every rank forms every row's and
+    column's group (torch.distributed's new_group is collective) and keeps
+    its own."""
+    if mesh.size % ctx:
+        raise ValueError(f"a ctx axis of {ctx} does not divide a world of "
+                         f"{mesh.size}")
+    if isinstance(mesh.group, ThreadGroup):
+        raise ValueError(f"a thread mesh's axes are fixed where it is made "
+                         f"(mesh.thread_meshes(..., ctx={ctx}))")
+    data = mesh.size // ctx
+    ctx_group = data_group = None
+    if ctx > 1 and data > 1:
+        wait = datetime.timedelta(seconds=timeout)
+        rows = [dist.new_group([i * ctx + j for j in range(ctx)],
+                               timeout=wait) for i in range(data)]
+        cols = [dist.new_group([i * ctx + j for i in range(data)],
+                               timeout=wait) for j in range(ctx)]
+        ctx_group, data_group = rows[mesh.rank // ctx], cols[mesh.rank % ctx]
+    return dataclasses.replace(mesh, ctx=ctx, ctx_group=ctx_group,
+                               data_group=data_group)
 
 
 def share_host_threads(local_world: int) -> None:

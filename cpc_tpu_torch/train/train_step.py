@@ -44,8 +44,11 @@ batch, gathers the latents of every rank into its candidate pool when
 `loss.cross_replica` (each microbatch its own gathered pool), and averages
 gradients and metrics over the ranks before grad_norm and the update, so
 the update is the single-device step on the global batch. A mesh of one
-rank runs the same collectives. Context and tensor parallelism and
-`loss.ring` raise, naming their ROADMAP.md item (`check_supported`).
+rank runs the same collectives. With `loss.ring` the all-steps pool is
+swept round the ranks instead of gathered (`ops/infonce_ring.py`).
+`train.parallel` 'cp' and 'dpcp' build the context-parallel steps of
+`parallel/cp.py` instead; tensor parallelism ('model' axes) raises, naming
+ROADMAP.md A10c (`check_supported`).
 """
 
 from __future__ import annotations
@@ -162,24 +165,19 @@ def resolve_fuse_heads(cfg: CPCConfig, mesh=None) -> bool:
 
 
 def check_supported(cfg: CPCConfig, mesh=None) -> None:
-    """Raises on what the port's trainer does not run yet, and on a mesh
-    or batch that does not fit the world of `mesh` (one process without
-    one)."""
-    t, d, loss = cfg.train, cfg.data, cfg.model.loss
-    if t.parallel != "dp":
-        raise NotImplementedError(
-            f"train.parallel={t.parallel!r}: context parallelism ('cp', "
-            f"'dpcp') is not ported yet (ROADMAP.md A10)")
-    if "model" in t.mesh_axes:
-        raise NotImplementedError(
-            f"train.mesh_axes={tuple(t.mesh_axes)}: tensor parallelism over "
-            f"'model' is not ported yet (ROADMAP.md A10)")
+    """Raises on what the port's data-parallel trainer does not run, and
+    on a mesh or batch that does not fit the world of `mesh` (one process
+    without one)."""
+    t, d = cfg.train, cfg.data
+    if t.parallel not in ("dp", "cp", "dpcp"):
+        raise ValueError(f"train.parallel must be 'dp'|'cp'|'dpcp', "
+                         f"got {t.parallel!r}")
     world = 1 if mesh is None else mesh.size
-    mesh_size(t.mesh_shape, world)
-    if mesh is not None and loss.ring and loss.cross_replica:
-        raise NotImplementedError(
-            "loss.ring (the all-steps pool swept over a ring of ranks) is "
-            "not ported yet (ROADMAP.md A10); the port gathers the pool")
+    mesh_size(t.mesh_shape, world, t.mesh_axes)
+    if "ctx" in t.mesh_axes:
+        raise ValueError(
+            f"train.mesh_axes={tuple(t.mesh_axes)} under train.parallel="
+            f"'dp': a 'ctx' axis needs train.parallel 'dpcp'")
     if d.batch_size % world:
         raise ValueError(
             f"batch_size {d.batch_size} is not divisible by the {world}-way "
@@ -190,8 +188,14 @@ def check_supported(cfg: CPCConfig, mesh=None) -> None:
 
 def init_state(cfg: CPCConfig, device=None) -> CPCModel:
     """The model, its weights drawn from `train.seed` (on the CPU, so a seed
-    gives the same weights on any device), on `device`."""
-    return CPCModel(cfg.model, device=device,
+    gives the same weights on any device), on `device`. Under
+    train.parallel 'cp' | 'dpcp' its gar takes a ring attention
+    (`parallel.cp.cp_model_config`: the same parameters and draws)."""
+    model_cfg = cfg.model
+    if cfg.train.parallel != "dp":
+        from cpc_tpu_torch.parallel.cp import cp_model_config
+        model_cfg = cp_model_config(model_cfg)
+    return CPCModel(model_cfg, device=device,
                     generator=torch.Generator().manual_seed(cfg.train.seed))
 
 
@@ -238,7 +242,12 @@ def _checked_backward(loss: torch.Tensor, step: int) -> None:
 
 def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
     """The train and eval steps of `model`; with a `mesh`, data-parallel
-    over its ranks (each step takes this rank's rows)."""
+    over its ranks (each step takes this rank's rows). Under
+    train.parallel 'cp' | 'dpcp' the context-parallel steps of
+    `parallel.cp.make_cp_step_fns` (each takes the global batch)."""
+    if cfg.train.parallel in ("cp", "dpcp"):
+        from cpc_tpu_torch.parallel.cp import make_cp_step_fns
+        return make_cp_step_fns(cfg, model, mesh)
     check_supported(cfg, mesh)
     opt = make_optimizer(cfg, model)
     loss_cfg = cfg.model.loss
@@ -274,7 +283,7 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
         return infonce_loss_and_metrics(
             out.preds, out.z, negatives=loss_cfg.negatives, mesh=pool_mesh,
             use_pallas=loss_cfg.use_pallas,
-            pallas_bf16=loss_cfg.pallas_bf16)
+            pallas_bf16=loss_cfg.pallas_bf16, ring=loss_cfg.ring)
 
     def train_step(batch: torch.Tensor, mesh=None) -> Dict[str, torch.Tensor]:
         """One optimizer step. With accum_steps > 1 the batch splits into

@@ -16,8 +16,14 @@ resume (`multihost.replicate`), each rank's rows of every global batch
 SIGTERM flags agreed on at every step (`multihost.any_true`), so that all
 save at the same step. Rank 0 alone writes the workdir (config.json,
 metrics.jsonl, checkpoints; a barrier follows each save); every rank
-restores from it. `audio_sec_per_sec` counts the global batch. The
-parallel modes beyond data parallelism wait (ROADMAP.md A10).
+restores from it. `audio_sec_per_sec` counts the global batch.
+
+Under train.parallel 'cp' | 'dpcp' (context parallelism, `parallel/cp.py`)
+the same loop runs the CP steps: the model's gar takes ring attention
+(`init_state`), every rank stages the WHOLE global batch (or index vector),
+and the step takes its shard after preparing it; checkpoints, metrics and
+resume are as under data parallelism. Without a mesh 'cp' runs a ring of
+one rank. Tensor parallelism waits (ROADMAP.md A10c).
 
 Under `data.device_corpus` the trainer uploads the training corpus to its
 card once (`data.loader.load_device_corpus`; every rank its own copy under
@@ -69,6 +75,9 @@ class Trainer:
                              f"device {mesh.device} for rank {mesh.rank}")
         self.model = init_state(cfg, self.device)
         self.steps = make_step_fns(cfg, self.model, mesh)
+        # data parallelism stages this rank's rows; a CP step takes the
+        # global batch and shards it itself
+        self._rows_of = mesh if cfg.train.parallel == "dp" else None
         if mesh is not None:
             multihost.replicate(self._state_tensors(), mesh)
         dc = cfg.data.device_corpus
@@ -172,8 +181,8 @@ class Trainer:
 
     def _stage(self, host_batch) -> torch.Tensor:
         """This rank's rows of a host batch (or of an index vector), on its
-        device."""
-        return to_device(multihost.shard_batch(host_batch, self.mesh),
+        device; all of them for a CP step."""
+        return to_device(multihost.shard_batch(host_batch, self._rows_of),
                          self.device)
 
     def _train_loop(self, total: int) -> Dict:

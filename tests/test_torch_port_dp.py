@@ -14,12 +14,14 @@
     other ranks draw otherwise;
   * the checks: a mesh shape that is not the world, a batch the world does
     not divide, the CLI's flags, two NCCL ranks on one card, and the
-    parallel modes that wait (naming ROADMAP.md A10).
+    parallel mode that waits (tensor parallelism, naming ROADMAP.md A10c);
+    context parallelism and `loss.ring` run on a mesh.
 
 Everything runs on the CPU with one torch thread.
 """
 
 import dataclasses
+import functools
 import json
 import socket
 import threading
@@ -387,24 +389,71 @@ def test_batch_the_world_does_not_divide_raises():
     assert _mesh(2, rank=1).rows(B) == slice(2, 4)
 
 
+def _cp_cfg(**train):
+    cfg = _with(_cfg(negatives="all_steps", use_pallas=False), "model",
+                ar=tcfg.ArConfig(kind="transformer", d_ar=8, num_layers=1,
+                                 num_heads=2))
+    return _with(cfg, "train", **train)
+
+
 @pytest.mark.parametrize("section,fields", [
     ("train", dict(parallel="cp")),
-    ("train", dict(parallel="dpcp", mesh_shape=(2, 1),
+    ("train", dict(parallel="dpcp", mesh_shape=(1, 1),
                    mesh_axes=("data", "ctx"))),
     ("train", dict(mesh_shape=(1, 1), mesh_axes=("data", "model"))),
-    ("train", dict(mesh_shape=(1, 1))),
+    ("train", dict(mesh_shape=(1,), mesh_axes=("model",))),
 ])
 def test_waiting_parallel_modes_name_a10(section, fields):
-    cfg = _with(_cfg(), section, **fields)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        make_step_fns(cfg, CPCModel(cfg.model), _mesh(1))
+    # 'cp' and 'dpcp' run on a one-rank mesh; 'model' axes still wait,
+    # naming A10c
+    cfg = _cp_cfg(**fields)
+    if "model" in cfg.train.mesh_axes:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A10c"):
+            make_step_fns(cfg, CPCModel(cfg.model), _mesh(1))
+        return
+    from cpc_tpu_torch.train.train_step import init_state
+    model = init_state(cfg)
+    m = make_step_fns(cfg, model, _mesh(1)).train_step(_batches(1)[0])
+    assert all(bool(torch.isfinite(v).all()) for v in m.values())
 
 
 def test_loss_ring_under_a_mesh_names_a10():
-    cfg = _cfg(negatives="all_steps", ring=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        make_step_fns(cfg, CPCModel(cfg.model), _mesh(2))
-    make_step_fns(cfg, CPCModel(cfg.model))  # no mesh: nothing to sweep
+    # loss.ring under a mesh sweeps the pool round the ranks: on two thread
+    # ranks the step equals the gathered all-steps step (more worlds in
+    # tests/test_torch_port_ring_infonce.py); without a mesh it is the
+    # plain all-steps step
+    from cpc_tpu_torch.ops.ring_util import run_thread_ranks
+    from cpc_tpu_torch.parallel.mesh import groups_of, thread_meshes
+    batch = _batches(1)[0]
+
+    def run(ring, mesh):
+        cfg = _cfg(negatives="all_steps", ring=ring)
+        model = CPCModel(cfg.model, generator=torch.Generator().manual_seed(0))
+        rows = batch if mesh is None else batch[mesh.rows(B)]
+        return make_step_fns(cfg, model, mesh).train_step(rows)
+
+    for ring in (True, False):
+        meshes = thread_meshes(2, "cpu", timeout=60)
+        got = run_thread_ranks(groups_of(meshes), [
+            functools.partial(run, ring, m) for m in meshes], timeout=120)
+        if ring:
+            swept = got
+    for a, b in zip(swept, got):
+        for k in b:
+            torch.testing.assert_close(a[k], b[k], rtol=1e-6, atol=1e-7)
+    alone = run(True, None)
+    assert all(bool(torch.isfinite(v).all()) for v in alone.values())
+
+
+def test_a_run_across_hosts_names_a10d(monkeypatch):
+    # a launcher's env:// with ranks on two hosts: refused before the group
+    # forms
+    for k, v in (("WORLD_SIZE", "4"), ("RANK", "0"), ("LOCAL_RANK", "0"),
+                 ("LOCAL_WORLD_SIZE", "2")):
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10d"):
+        multihost.initialize(device="cpu")
+    assert not dist.is_initialized()
 
 
 def test_pool_and_mesh_together_raise():

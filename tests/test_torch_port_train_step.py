@@ -43,7 +43,7 @@ from cpc_tpu.train.train_step import make_step_fns as jax_make_step_fns
 from cpc_tpu_torch import config as tcfg
 from cpc_tpu_torch.interop import from_jax_params
 from cpc_tpu_torch.models.cpc import CPCModel
-from cpc_tpu_torch.train.train_step import make_step_fns
+from cpc_tpu_torch.train.train_step import init_state, make_step_fns
 
 BATCH, SAMPLES, LR = 4, 2000, 2e-4
 TOL = {"float32": dict(scalar=1e-4, grad=1e-4, encoder_grad=1e-4, acc=0.0),
@@ -172,13 +172,28 @@ def _changed(change):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(train=dict(parallel="cp")), "A10"),
-    (dict(train=dict(mesh_shape=(2, 2))), "A10"),
+    # context parallelism runs (a ring of one rank without a mesh; its
+    # parity is tests/test_torch_port_cp.py's); tensor parallelism still
+    # raises, naming its ROADMAP item
+    (dict(train=dict(parallel="cp"), model=dict(
+        ar=tcfg.ArConfig(kind="transformer", d_ar=8, num_layers=1,
+                         num_heads=2),
+        loss=tcfg.LossConfig(prediction_steps=2, negatives="all_steps"))),
+     None),
+    (dict(train=dict(mesh_shape=(2, 2), mesh_axes=("data", "model"))),
+     "A10c"),
 ])
 def test_unported_training_modes_raise(change, match):
     cfg = _changed(change)
-    with pytest.raises(NotImplementedError, match=match):
-        make_step_fns(cfg, CPCModel(cfg.model))
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            make_step_fns(cfg, CPCModel(cfg.model))
+        return
+    model = init_state(cfg)
+    assert model.config.ar.attn_impl == "ring"
+    m = make_step_fns(cfg, model).train_step(
+        torch.from_numpy(_batches(1)[0]))
+    assert all(bool(torch.isfinite(v).all()) for v in m.values())
 
 
 @pytest.mark.parametrize("change", [dict(data=dict(device_corpus=True)),
