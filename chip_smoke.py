@@ -270,13 +270,30 @@ Phases, in order; any failure exits non-zero:
    maestro_scalogram, transformer_gar): 10 steps through the training CLI
    (finite metrics; the GRU kernels once a step where the gar is a GRU,
    nothing else), an extraction through the eval CLI from that workdir,
-   and one step on the card against the same step on the CPU, at
-   A11_TOL with TF32 off, then once more under torch's default TF32
-   settings (cuDNN's convs in TF32, as the CLI trains), reported.
+   and one step on the card against the same step on the CPU at A11_TOL,
+   under torch's default settings as a user's process has them (the step
+   turns TF32 off for an fp32 model itself), that step twice bit-equal;
+   then its time against the same step with cuDNN's TF32 convs, in 10
+   alternating pairs of turns, the cost called unresolved where the pairs
+   differ in sign; the fp32 dp_global_negatives step twice bit-equal; the
+   spread with cuDNN's default conv backward reported for each (C16);
+28. tensor parallelism (`parallel/tp.py`) on ranks played by threads on
+   the card: tpu_fast at full width (bf16, 64 x 20 480, K 12,
+   ar.use_pallas) on (data, model) = (1, 2), (2, 2), (1, 4) against the
+   single-device step on the plain loss (loss, per-k accuracy, grad_norm,
+   the gathered gradients of conv0, wi and the heads), the GRU kernels
+   once a rank a step; transformer_fast's widths in fp32 with xla and
+   flash16 attention (the flash kernels on each rank's heads) on (1, 2)
+   and (1, 4) at the JAX package's CP tolerances; each TP step's ms beside
+   the single-device step's (in turns) and a step's TP collectives (count,
+   bytes, ms).
 
 With `--dp-cards N` it runs data parallelism across N cards under NCCL
 instead, what one card cannot run (`dp_cards_main`); with `--cp-cards N`
-context parallelism across N cards (`cp_cards_main`).
+context parallelism across N cards (`cp_cards_main`); with `--tp-cards N`
+tensor parallelism across N cards, one NCCL process a card
+(`tp_cards_main`); with `--hosts 2` a run across two "hosts" through the
+training CLI (`hosts_main`).
 
 It prints a JSON line of the kernels it checked, each with its launches on
 its main path, its error against its plain version, its time, its plain
@@ -291,8 +308,8 @@ shape (`dp_ms`, phase 23(c); null for a kernel off the DP path), its
 launches in phase 24(d)'s CLI run on the packed corpus (`feed_launches`),
 a rank's launches in phase 26(a)'s ring step (`ring_dp_launches`), the
 launches of phase 26(b)'s CP steps (`cp_launches`: none, the path is
-plain) and of phase 27's three CLI runs (`a11_launches`); and, last, one
-JSON object naming the device.
+plain), of phase 27's three CLI runs (`a11_launches`) and of phase 28's
+TP steps (`tp_launches`); and, last, one JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -312,6 +329,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -332,7 +350,7 @@ from cpc_tpu_torch.data.wavio import decode_mono, read_wav, write_wav
 from cpc_tpu_torch.eval import cli as eval_cli
 from cpc_tpu_torch.eval import probes
 from cpc_tpu_torch.eval.cli import load_weights
-from cpc_tpu_torch.eval.streaming import (StreamingExtractor, fp32_exact,
+from cpc_tpu_torch.eval.streaming import (StreamingExtractor,
                                           portable_stream_model)
 from cpc_tpu_torch.models.transformer import carry_decode_model, decode_carry
 from cpc_tpu_torch.ops import (_build, attention_cuda, gru_cuda, infonce_cuda,
@@ -347,7 +365,7 @@ from cpc_tpu_torch.ops.conv_cuda import (_ConvPyramidPlain, conv_chain,
                                          conv_pyramid_forward,
                                          conv_pyramid_reference, pack_weights,
                                          pyramid_launches, pyramid_route)
-from cpc_tpu_torch.ops import dsp
+from cpc_tpu_torch.ops import conv_cuda, dsp
 from cpc_tpu_torch.ops.dsp import prepare_waveform
 from cpc_tpu_torch.ops.gru_cuda import (_GruScanPlain,
                                         cluster_exchange_probe, gru_route,
@@ -372,16 +390,18 @@ from cpc_tpu_torch.ops.infonce_fused import (_HeadsNllPlain,
                                              heads_nll_reference,
                                              heads_route, reduce_heads_nll)
 from cpc_tpu_torch.ops.scalogram import scalogram
-from cpc_tpu_torch.ops.ring_util import run_thread_ranks
-from cpc_tpu_torch.parallel import cp, dp, multihost
+from cpc_tpu_torch.ops.ring_util import Ring, run_thread_ranks
+from cpc_tpu_torch.parallel import cp, dp, multihost, tp
 from cpc_tpu_torch.parallel.mesh import groups_of, thread_meshes
 from cpc_tpu_torch.train import cli as train_cli
+from cpc_tpu_torch.train import train_step as train_step_module
 from cpc_tpu_torch.train.checkpoint import CheckpointManager
 from cpc_tpu_torch.train.metrics import masked_crc32c
 from cpc_tpu_torch.train.supervisor import latest_checkpoint_step
 from cpc_tpu_torch.train.train_step import (global_norm, init_state,
                                             make_step_fns)
 from cpc_tpu_torch.train.trainer import Trainer
+from cpc_tpu_torch.utils.precision import fp32_exact
 from cpc_tpu_torch.utils.profiling import enable_nan_debug
 
 TOL = {torch.float32: 1e-4,   # fp32 with TF32 off: summation order only
@@ -3912,10 +3932,11 @@ CP_BF16_TOL = dict(TRANSFORMER_STEP_TOL, grad=4e-3)
 CP_FP32_TOL = {"loss": (1e-5, 1e-6), "grad": (5e-5, 5e-5)}
 
 
-def on_thread_ranks(world: int, ctx: int, fn) -> list:
-    """fn(mesh) on `world` ranks played by threads on cuda:0, ctx of them
-    to a data row."""
-    meshes = thread_meshes(world, "cuda:0", ctx=ctx, timeout=600)
+def on_thread_ranks(world: int, ctx: int, fn, model: int = 1) -> list:
+    """fn(mesh) on `world` ranks played by threads on cuda:0, ctx (or
+    model) of them to a data row."""
+    meshes = thread_meshes(world, "cuda:0", ctx=ctx, timeout=600,
+                           model=model)
     return run_thread_ranks(groups_of(meshes),
                             [functools.partial(fn, m) for m in meshes],
                             timeout=1200)
@@ -4263,24 +4284,88 @@ A11_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-4,
            "grad_of_max": 1e-2, "acc": 1.0}
 
 
+A11_PAIRS = 10  # pairs of turns, alternating which goes first
+A11_TIMED = 3   # steps a turn
+
+
 def a11_step(cfg, device, batch, watched):
+    """One training step through the program's own step function (as the
+    CLI runs it: an fp32 model with TF32 off, `utils.precision`): its
+    metrics and the watched gradients the update used, on the host."""
     model = init_state(cfg, device)
     steps = make_step_fns(cfg, model)
-    loss, m = steps.loss_fn(model, batch.to(device))
-    loss.backward()
-    grads = {k: p.grad.float().cpu() for k, p in model.named_parameters()}
-    return ({"loss": loss.detach().float().cpu(), "acc": m["acc"].cpu(),
-             "grad_norm": global_norm(grads.values())},
-            {k: grads[k] for k in watched})
+    seen = {}
+    steps.optimizer.step = lambda grads: seen.update(
+        {k: grads[k].detach().float().cpu() for k in watched})
+    m = steps.train_step(batch.to(device))
+    return ({"loss": m["loss"].float().cpu(), "acc": m["acc"].float().cpu(),
+             "grad_norm": m["grad_norm"].float().cpu()}, seen)
+
+
+def a11_step_ms(cfg, batch) -> dict:
+    """The fp32 step's ms on the card under torch's default TF32 settings,
+    as a user's process runs it: "after" is the step as it is (TF32 off
+    inside it), "before" the same step with its precision context made a
+    no-op (cuDNN's convs in TF32, as before C15's repair). A11_PAIRS pairs
+    of turns, alternating which goes first, A11_TIMED steps a turn (a
+    warm-up step each before the first pair); returns each label's turn
+    medians, pair by pair."""
+    runs = {}
+    for label in ("after", "before"):
+        model = init_state(cfg, "cuda")
+        runs[label] = make_step_fns(cfg, model)
+    batch = batch.cuda()
+    times = {"after": [], "before": []}
+    noop = (lambda dtype: contextlib.nullcontext())
+    for i in range(A11_PAIRS):
+        for label in (("after", "before") if i % 2 == 0
+                      else ("before", "after")):
+            with contextlib.ExitStack() as stack:
+                if label == "before":
+                    stack.enter_context(forced("exact_for", noop,
+                                               module=train_step_module))
+                if i == 0:
+                    runs[label].train_step(batch)  # warm-up
+                turn = []
+                for _ in range(A11_TIMED):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runs[label].train_step(batch)
+                    torch.cuda.synchronize()
+                    turn.append((time.perf_counter() - t0) * 1e3)
+                times[label].append(statistics.median(turn))
+    return times
+
+
+def tf32_cost(times: dict) -> str:
+    """TF32-off's cost a step from a11_step_ms' pairs: each label's median
+    and range over its turns, the pairs' differences, and whether they
+    resolve it (every pair's difference of one sign) or not."""
+    diff = [a - b for a, b in zip(times["after"], times["before"])]
+    same = all(d > 0 for d in diff) or all(d < 0 for d in diff)
+    return (f"{statistics.median(times['after']):.2f} ms with TF32 off "
+            f"inside the step (turns {min(times['after']):.2f}-"
+            f"{max(times['after']):.2f}), "
+            f"{statistics.median(times['before']):.2f} ms with cuDNN's TF32 "
+            f"convs, before C15's repair (turns {min(times['before']):.2f}-"
+            f"{max(times['before']):.2f}); TF32 off minus TF32 by pair: "
+            f"median {statistics.median(diff):+.2f} ms, from "
+            f"{min(diff):+.2f} to {max(diff):+.2f}: "
+            f"{'resolved, one sign in every pair' if same else 'UNRESOLVED, the pairs differ in sign'}"
+            f" ({len(diff)} pairs of turns of {A11_TIMED} steps, "
+            f"alternating, CUDA sync)")
 
 
 def phase27_fp32_presets(card: str) -> dict:
     """A11: baseline (batch 8), maestro_scalogram and transformer_gar, fp32,
     through the training CLI for 10 steps (finite metrics, launches
     counted), an extraction through the eval CLI from that workdir, and one
-    step on the card against the same step on the CPU (A11_TOL, TF32 off;
-    then once more under torch's default TF32 settings, as the CLI trains,
-    reported). Returns the launches of the three CLI runs, summed."""
+    step on the card against the same step on the CPU, under torch's
+    default TF32 settings as a user's process has them (the step turns
+    TF32 off for an fp32 model itself, C15), at A11_TOL, and that step run
+    twice bit-equal (C16); then the step's time against the same step with
+    cuDNN's TF32 convs, in alternating pairs (tf32_cost). Returns the
+    launches of the three CLI runs, summed."""
     total = {k: 0 for k in COUNTED}
     for name, (data, kernels) in A11_PRESETS.items():
         cfg = presets.by_name(name)
@@ -4319,24 +4404,442 @@ def phase27_fp32_presets(card: str) -> dict:
         cpu = a11_step(cfg, "cpu", batch, watched)
         T = S // cfg.model.encoder.total_downsample
         rows = B * (T - cfg.model.loss.prediction_steps)
-        for tf32 in (False, True):
-            # TF32 off, then torch's defaults (cuDNN's convs in TF32)
-            with forced("allow_tf32", tf32, module=torch.backends.cudnn):
-                card_step = a11_step(cfg, "cuda", batch, watched)
-            errs = step_errors(card_step, cpu)
-            errs["acc"] = round(errs["acc"] * rows, 3)  # rows a k
+        with torch_tf32_defaults():
             flags = (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
-                     f"cuDNN {tf32}")
-            label = f"A11 {name}: one step on the card ({flags}) vs the CPU"
-            if not tf32:
-                held_errors(label, errs, A11_TOL)
-            else:
-                over = {k: e for k, e in errs.items()
-                        if e > A11_TOL[k.split()[0]]}
-                print(f"{label} (torch's default TF32 settings, reported): "
-                      f"errors {errs} (acc in rows a k); beyond A11_TOL: "
-                      f"{over or 'none'}", flush=True)
+                     f"cuDNN {torch.backends.cudnn.allow_tf32}, cuDNN "
+                     f"deterministic {torch.backends.cudnn.deterministic}")
+            card_step = a11_step(cfg, "cuda", batch, watched)
+            again = a11_step(cfg, "cuda", batch, watched)
+            with forced("_Repeatable", _CudnnDefault, module=conv_cuda):
+                before = [a11_step(cfg, "cuda", batch, watched)
+                          for _ in range(2)]
+            ms = a11_step_ms(cfg, batch)
+        errs = step_errors(card_step, cpu)
+        errs["acc"] = round(errs["acc"] * rows, 3)  # rows a k
+        held_errors(f"A11 {name}: one step on the card under torch's "
+                    f"default settings ({flags}) vs the CPU", errs, A11_TOL)
+        # C16: the same step twice gives the same bits (the first conv's
+        # weight gradient summed with atomics did not)
+        differ = [k for k in watched
+                  if not torch.equal(card_step[1][k], again[1][k])] + [
+            k for k in card_step[0]
+            if not torch.equal(card_step[0][k], again[0][k])]
+        spread = {k: float((before[0][1][k] - before[1][1][k]).abs().max())
+                  for k in watched
+                  if not torch.equal(before[0][1][k], before[1][1][k])}
+        print(f"A11 {name}: the step run twice on the card, metrics and "
+              f"watched gradients that differ: {differ}; with cuDNN's "
+              f"default conv backward (C16's repair taken out, reported) "
+              f"{spread or 'none'}", flush=True)
+        check(not differ, f"A11 {name}: the fp32 step is not reproducible: "
+              f"{differ}")
+        print(f"A11 {name}: the fp32 step on {card}, batch {B}, under "
+              f"torch's defaults: {tf32_cost(ms)}", flush=True)
+    c16_repeat(card)
     return total
+
+
+# C16: the step where run-to-run fp32 bits were first seen to differ (the
+# --hosts rehearsal's dp_global_negatives in fp32, at its 32 rows a rank
+# and at the 64 of one process)
+C16_ROWS = (32, 64)
+
+
+class _CudnnDefault:
+    """`conv_cuda._Repeatable` replaced by cuDNN's own conv with its
+    default backward algorithms: the convs before C16's repair."""
+
+    @staticmethod
+    def apply(h, w, b, stride):
+        conv = (torch.nn.functional.conv1d if h.dim() == 3
+                else torch.nn.functional.conv2d)
+        return conv(h, w, b, stride=stride)
+
+
+def c16_repeat(card: str) -> None:
+    """The fp32 dp_global_negatives step twice from the same seed on the
+    same batch under torch's default settings: as the program runs it
+    (the first conv's backward with cuDNN's deterministic algorithms,
+    `conv_cuda._Repeatable`), every gradient bit-equal; with cuDNN's
+    default algorithms for it instead, the gradients that differ and by
+    how much, reported."""
+    for rows in C16_ROWS:
+        cfg = apply_overrides(presets.dp_global_negatives(), [
+            "model.dtype=float32", "model.loss.pallas_bf16=false",
+            f"data.batch_size={rows}"])
+        batch = torch.from_numpy(dp_batch(cfg))
+        names = [k for k, _ in init_state(cfg).named_parameters()]
+        with torch_tf32_defaults():
+            runs = [a11_step(cfg, "cuda", batch, names) for _ in range(2)]
+            with forced("_Repeatable", _CudnnDefault, module=conv_cuda):
+                before = [a11_step(cfg, "cuda", batch, names)
+                          for _ in range(2)]
+        differ = [k for k in names if not torch.equal(runs[0][1][k],
+                                                      runs[1][1][k])]
+        spread = {k: float((before[0][1][k] - before[1][1][k]).abs().max())
+                  for k in names
+                  if not torch.equal(before[0][1][k], before[1][1][k])}
+        print(f"C16: fp32 dp_global_negatives, {rows} rows, the step twice on "
+              f"{card} under torch's defaults: gradients that differ {differ}"
+              f"; with cuDNN's default algorithms for the first conv's "
+              f"backward (the repair taken out, reported) {spread or 'none'}",
+              flush=True)
+        check(not differ, f"C16: the fp32 step at {rows} rows is not "
+              f"reproducible: {differ}")
+
+
+# ---------------------------------------------------------------- phase 28
+# Tensor parallelism (parallel/tp.py) on one card, ranks played by threads:
+# tpu_fast at full width (bf16, 64 x 20 480, K 12, ar.use_pallas) on the
+# (data, model) meshes below against the single-device step on the plain
+# loss, the TP step's own (the JAX package's TP step computes the plain
+# InfoNCE whatever loss.use_pallas says); then transformer_fast's widths in
+# fp32 (TF32 off) with xla and flash16 attention (the flash kernels on
+# each rank's heads).
+TP_MESHES = ((1, 2), (2, 2), (1, 4))
+TP_TRANSFORMER_MESHES = ((1, 2), (1, 4))
+TP_PLAIN = ["model.loss.use_pallas=false"]
+TP_WATCHED = ("encoder.conv0.weight", "gar.layer0.wi",
+              "prediction_heads.weight")
+TP_TRANSFORMER_WATCHED = ("encoder.conv0.weight",
+                          "gar.block0.attn.query.weight",
+                          "gar.block0.attn.out.weight",
+                          "gar.block0.fc2.weight", "prediction_heads.weight")
+TP_TIMED_STEPS = 3
+# bf16 TP against one device: the convs and heads compute the whole
+# product on the gathered weight, as one device does, but the GRU's wi
+# partials are summed in fp32 and rounded once where the single-device
+# product rounds its bf16 output, and a data axis splits the rows, where
+# cuDNN and cuBLAS may pick another algorithm: an entry near a rounding
+# edge lands one bf16 rounding apart, as two DP ranks' do (phase 23(b)).
+TP_BF16_TOL = dict(DP_TOL)
+_TRAFFIC = threading.local()
+
+
+def _timed_all_reduce(real):
+    """Ring.all_reduce, timed between CUDA syncs and counted in bytes for
+    the thread (or process) that set `_TRAFFIC.rec`."""
+    def call(self, t):
+        rec = getattr(_TRAFFIC, "rec", None)
+        if rec is None:
+            return real(self, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(self, t)
+        torch.cuda.synchronize()
+        rec["ms"] += (time.perf_counter() - t0) * 1e3
+        rec["bytes"] += t.numel() * t.element_size() if self.size > 1 else 0
+        rec["calls"] += self.size > 1
+    return call
+
+
+def tp_one_step(cfg, mesh, batch, watched, timed_steps=0):
+    """One TP step of a model of `cfg` (weights from train.seed, sharded)
+    on this rank's rows of `batch`: its metrics and the whole watched
+    gradients the update used, on the host; with `timed_steps`, that many
+    more steps' median ms (CUDA sync; every rank steps together), and one
+    more step with its TP collectives (Ring.all_reduce) timed and counted:
+    {bytes, ms, calls} a rank."""
+    model = init_state(cfg, "cuda")
+    steps = tp.make_tp_train_step(cfg, model, mesh)
+    seen = {}
+    update = steps.optimizer.step
+
+    def spy(grads):
+        seen.update({k: grads[k] for k in watched})
+        update(grads)
+    steps.optimizer.step = spy
+    rows = batch[mesh.rows(len(batch))]
+    m = steps.train_step(rows)
+    steps.optimizer.step = update
+    metrics = {k: v.float().cpu() for k, v in m.items()}
+    grads = {k: v.float().cpu()
+             for k, v in tp.gather_params(model, mesh, seen).items()}
+    times, traffic = [], None
+    for _ in range(timed_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.train_step(rows)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if timed_steps:
+        _TRAFFIC.rec = traffic = {"bytes": 0, "ms": 0.0, "calls": 0}
+        try:
+            steps.train_step(rows)
+        finally:
+            _TRAFFIC.rec = None
+    return (metrics, grads, statistics.median(times) if times else None,
+            traffic)
+
+
+def tp_config(base: str, sets=()):
+    return apply_overrides(presets.by_name(base), TP_PLAIN + list(sets))
+
+
+def tp_run(cfg, shape, batch, watched, timed_steps):
+    """tp_one_step on d x m thread ranks on the card; rank 0's result and
+    every kernel's launches in the run (counts zeroed before)."""
+    d, m = shape
+    zero_counts()
+    with forced("all_reduce", _timed_all_reduce(Ring.all_reduce),
+                module=Ring):
+        got = on_thread_ranks(d * m, 1, lambda mesh: tp_one_step(
+            cfg, mesh, batch, watched, timed_steps), model=m)[0]
+    return got, counts_now()
+
+
+def phase28_tp(card: str) -> dict:
+    """Tensor parallelism on one card, ranks played by threads: tpu_fast
+    at full width on TP_MESHES against the single-device plain step
+    (TP_BF16_TOL: loss, per-k accuracy, grad_norm and the gathered
+    gradients of conv0, wi and the heads), the GRU kernels once a rank a
+    step; then transformer_fast's widths in fp32 on TP_TRANSFORMER_MESHES
+    with xla and flash16 attention against the single-device step at the
+    JAX package's CP tolerances (fp32_held). Each TP step's ms beside the
+    single-device step's (in turns) and a step's TP collectives (bytes,
+    ms) a rank. Returns the kernels' launches in the TP runs."""
+    total = {k: 0 for k in COUNTED}
+    steps_run = 1 + TP_TIMED_STEPS + 1  # checked, timed, the traffic's
+    cfg = tp_config("tpu_fast")
+    batch = torch.from_numpy(dp_batch(cfg)).cuda()
+    ref = one_step(cfg, None, batch, TP_WATCHED, TP_TIMED_STEPS)
+    for shape in TP_MESHES:
+        (m, g, ms, traffic), n = tp_run(cfg, shape, batch, TP_WATCHED,
+                                         TP_TIMED_STEPS)
+        total = {k: total[k] + n[k] for k in total}
+        world = shape[0] * shape[1]
+        label = (f"tp tpu_fast bf16 64 x 20 480 on (data, model) = {shape}, "
+                 f"thread ranks")
+        held_errors(f"{label} vs the single-device plain step",
+                    step_errors((m, g), ref[:2]), TP_BF16_TOL)
+        print(f"{label} on {card}: the TP step {ms:.2f} ms a rank (median "
+              f"of {TP_TIMED_STEPS}) against the single-device step's "
+              f"{ref[2]:.2f} ms (thread ranks share one card: the split's "
+              f"and the collectives' cost, not a speed-up); a step's TP "
+              f"collectives on rank 0: {traffic['calls']} all_reduces, "
+              f"{traffic['bytes'] / 1e6:.1f} MB, {traffic['ms']:.2f} ms "
+              f"(between CUDA syncs, waits for the other ranks included); "
+              f"launches {({k: v for k, v in n.items() if v})}",
+              flush=True)
+        for name in GRU_KERNELS:
+            check(n[name] == world * steps_run,
+                  f"{label}: {name} launched {n[name]} times, expected "
+                  f"{world * steps_run} (once a rank a step)")
+        torch.cuda.empty_cache()
+    ref_again = one_step(cfg, None, batch, TP_WATCHED, TP_TIMED_STEPS)
+    print(f"tp tpu_fast: the single-device step again {ref_again[2]:.2f} ms "
+          f"on {card}", flush=True)
+    for impl in ("xla", "flash16"):
+        cfg = tp_config("transformer_fast", ["model.dtype=float32",
+                                             f"model.ar.attn_impl={impl}"])
+        B, S = cfg.data.batch_size, cfg.data.snippet_samples
+        batch = torch.from_numpy(dp_batch(cfg)).cuda()
+        ref = one_step(cfg, None, batch, TP_TRANSFORMER_WATCHED,
+                       TP_TIMED_STEPS)
+        for shape in TP_TRANSFORMER_MESHES:
+            (m, g, ms, traffic), n = tp_run(cfg, shape, batch,
+                                             TP_TRANSFORMER_WATCHED,
+                                             TP_TIMED_STEPS)
+            total = {k: total[k] + n[k] for k in total}
+            label = (f"tp transformer_fast fp32 {impl} {B} x {S} on (data, "
+                     f"model) = {shape}, thread ranks")
+            fp32_held(f"{label} vs one device", (m, g), ref[:2],
+                      B * (S // 160 - cfg.model.loss.prediction_steps))
+            attn = {k: n[k] for k in ATTN_KERNELS if n[k]}
+            print(f"{label} on {card}: the TP step {ms:.2f} ms a rank "
+                  f"against the single-device step's {ref[2]:.2f} ms; TP "
+                  f"collectives on rank 0: {traffic['calls']} all_reduces, "
+                  f"{traffic['bytes'] / 1e6:.1f} MB, {traffic['ms']:.2f} ms; "
+                  f"attention kernels launched {attn}", flush=True)
+            check(bool(attn) == (impl == "flash16"),
+                  f"{label}: attention kernels {attn}")
+            torch.cuda.empty_cache()
+    return total
+
+
+# ------------------------------------------------- --tp-cards N, --hosts 2
+TP_CARDS_STEPS = 5
+HOSTS_STEPS = 8
+
+
+def tp_rank_main(argv) -> None:
+    """One NCCL rank of `chip_smoke.py --tp-cards N`, one process a card:
+    the tpu_fast TP step (bf16, full width) on (1, N) and (2, N/2) and the
+    fp32 transformer_fast step (flash16) on (1, N), each against the
+    single-device plain step on this rank's own card (TP_BF16_TOL, and the
+    JAX package's CP tolerances in fp32), its median ms beside the
+    single-device step's, and a step's collectives timed one by one between
+    CUDA syncs. Rank 0 prints one JSON line a case."""
+    args = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(args["--tp-rank"]), int(args["--tp-world"])
+    base = multihost.initialize(f"127.0.0.1:{args['--tp-port']}", world,
+                                rank, device="cuda")
+    try:
+        plan = [("tpu_fast", [], (1, world), TP_WATCHED),
+                ("tpu_fast", [], (2, world // 2), TP_WATCHED),
+                ("transformer_fast", ["model.dtype=float32",
+                                      "model.ar.attn_impl=flash16"],
+                 (1, world), TP_TRANSFORMER_WATCHED)]
+        meshes = {}
+        for name, sets, shape, watched in plan:
+            if shape[1] not in meshes:
+                meshes[shape[1]] = multihost.with_model(base, shape[1])
+            mesh = meshes[shape[1]]
+            cfg = tp_config(name, sets)
+            batch = torch.from_numpy(dp_batch(cfg)).to(mesh.device)
+            ref = one_step(cfg, None, batch, watched, TP_CARDS_STEPS)
+            with forced("all_reduce", _timed_all_reduce(Ring.all_reduce),
+                        module=Ring):
+                zero_counts()
+                m, g, ms, traffic = tp_one_step(cfg, mesh, batch, watched,
+                                                TP_CARDS_STEPS)
+                n = counts_now()
+            ref_again = one_step(cfg, None, batch, watched, TP_CARDS_STEPS)
+            label = " ".join([name, *sets, f"on {shape}"])
+            if cfg.model.dtype == "float32":
+                fp32_held(f"tp cards {label}", (m, g), ref[:2],
+                          len(batch) * (cfg.data.snippet_samples // 160
+                                        - cfg.model.loss.prediction_steps))
+            else:
+                held_errors(f"tp cards {label}", step_errors((m, g), ref[:2]),
+                            TP_BF16_TOL)
+            if rank == 0:
+                print(json.dumps({
+                    "case": label, "world": world, "tp_ms": ms,
+                    "one_card_ms": [ref[2], ref_again[2]],
+                    "collectives": traffic, "launches": {
+                        k: v for k, v in n.items() if v}}), flush=True)
+    finally:
+        multihost.shutdown()
+
+
+def tp_cards_main(n: int) -> None:
+    """`chip_smoke.py --tp-cards N`: tensor parallelism across N cards
+    under NCCL, one process a card (`tp_rank_main`)."""
+    check(torch.cuda.is_available() and torch.cuda.device_count() >= n
+          and n % 2 == 0, f"--tp-cards {n} needs an even {n} CUDA GPUs")
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    print(f"gpus: {cards.strip().splitlines()}", flush=True)
+    _build.load_library()  # once, before the ranks start
+    port = free_port()
+    texts = run_ranks(
+        [[sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+          "--tp-port", str(port), "--tp-world", str(n)] for r in range(n)],
+        timeout=900)
+    for t in texts:
+        for line in t.splitlines():
+            if line.startswith("tp cards") or line.startswith("{"):
+                print(line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def hosts_main(n_hosts: int) -> None:
+    """`chip_smoke.py --hosts 2`: a rehearsal of a run across hosts on one
+    machine. Each "host" is one process launched as torchrun launches a
+    host's rank, under env:// with its own RANK, LOCAL_RANK 0,
+    LOCAL_WORLD_SIZE 1 and CUDA_VISIBLE_DEVICES (its one card), through the
+    training CLI (--distributed), dp_global_negatives in fp32, against one
+    process on the global batch: the losses of the first DP_CARDS_HELD
+    steps within DP_CARDS_TOL; then a resume in fresh processes, bit for
+    bit against the straight run."""
+    check(torch.cuda.is_available() and torch.cuda.device_count() >= n_hosts,
+          f"--hosts {n_hosts} needs {n_hosts} CUDA GPUs")
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    print(f"gpus: {cards.strip().splitlines()}", flush=True)
+    _build.load_library()
+    with tempfile.TemporaryDirectory() as root:
+        corpus = os.path.join(root, "corpus")
+        generate_synthetic_corpus(corpus, num_speakers=64,
+                                  files_per_speaker=3, seconds_per_file=4.0,
+                                  seed=0)
+
+        def run(wd, steps, procs, *extra):
+            cmd = [sys.executable, "-m", "cpc_tpu_torch.train", "--config",
+                   "dp_global_negatives", "--data", corpus, "--workdir", wd,
+                   "--steps", str(steps), "--set", "train.log_every=1",
+                   "--set", f"train.checkpoint_every={HOSTS_STEPS // 2}",
+                   *FP32_SETS, *extra]
+            if procs == 1:
+                return run_ranks([cmd], timeout=900)
+            port = free_port()
+            logs = [tempfile.TemporaryFile("w+") for _ in range(procs)]
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE=str(procs),
+                       LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+            ps = [subprocess.Popen(cmd + ["--distributed"], stdout=log,
+                                   stderr=subprocess.STDOUT, text=True,
+                                   env=dict(env, RANK=str(r),
+                                            CUDA_VISIBLE_DEVICES=str(r)))
+                  for r, log in enumerate(logs)]
+            deadline = time.monotonic() + 900
+            try:
+                while any(p.poll() is None for p in ps):
+                    if any(p.returncode not in (None, 0) for p in ps) \
+                            or time.monotonic() > deadline:
+                        break
+                    time.sleep(0.1)
+            finally:
+                for p in ps:
+                    if p.poll() is None:
+                        p.kill()
+                    p.wait()
+            texts = []
+            for r, (p, log) in enumerate(zip(ps, logs)):
+                log.seek(0)
+                texts.append(log.read())
+                log.close()
+                check(p.returncode == 0, f"host {r} exited {p.returncode}:"
+                      f"\n{texts[-1][-6000:]}")
+            return texts
+
+        def losses(wd):
+            with open(os.path.join(wd, "metrics.jsonl")) as f:
+                return [r["loss"] for r in map(json.loads, f)
+                        if r["prefix"] == "train"]
+        one, straight, resumed = (os.path.join(root, k)
+                                  for k in ("one", "straight", "resumed"))
+        t0 = time.perf_counter()
+        run(one, HOSTS_STEPS, 1)
+        t1 = time.perf_counter()
+        said = run(straight, HOSTS_STEPS, n_hosts)
+        t2 = time.perf_counter()
+        run(resumed, HOSTS_STEPS // 2, n_hosts)
+        run(resumed, HOSTS_STEPS, n_hosts, "--resume")
+        a, b = losses(one), losses(straight)
+        errs = [abs(y - x) / abs(x) for x, y in zip(a, b)]
+        held = max(errs[:DP_CARDS_HELD])
+        print(f"hosts: dp_global_negatives fp32 on {n_hosts} \"hosts\" of "
+              f"one rank (env://, LOCAL_WORLD_SIZE 1, a card each; "
+              f"{cards.splitlines()[0]}) vs one process: "
+              f"{HOSTS_STEPS} steps in {t2 - t1:.1f} s against "
+              f"{t1 - t0:.1f} s (start-up included); relative errors by "
+              f"step {[f'{e:.1e}' for e in errs]}, the first "
+              f"{DP_CARDS_HELD} held: {held:.3e} (tol {DP_CARDS_TOL:.0e}); "
+              f"rank 0 said {[l for l in said[0].splitlines() if 'processes=' in l]}",
+              flush=True)
+        check(len(b) == HOSTS_STEPS and held <= DP_CARDS_TOL,
+              f"hosts trajectory {errs}")
+        ck = [torch.load(os.path.join(w, "checkpoints",
+                                      f"step_{HOSTS_STEPS}.pt"))
+              for w in (straight, resumed)]
+        differ = [k for k, v in ck[0]["model"].items()
+                  if not torch.equal(v, ck[1]["model"][k])]
+        print(f"hosts: resumed at step {HOSTS_STEPS // 2} in fresh "
+              f"processes: losses {losses(resumed) == b}, checkpoint "
+              f"tensors that differ {differ}", flush=True)
+        check(losses(resumed) == b and not differ
+              and ck[0]["meta"] == ck[1]["meta"], "the resumed run differs")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 # ------------------------------------------------------------ --cp-cards N
@@ -4631,6 +5134,10 @@ def main() -> None:
     # 27. the three fp32 presets no phase trained (A11)
     a11_launches = phase27_fp32_presets(card)
 
+    # 28. tensor parallelism on thread ranks: tpu_fast at full width, the
+    # transformer's heads (xla and flash16) in fp32
+    tp_launches = phase28_tp(card)
+
     sources = {
         "gru_scan": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:57"),
         "gru_scan_backward": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:82"),
@@ -4666,7 +5173,8 @@ def main() -> None:
         "dp_launches": dp_launches.get(name, 0), "dp_ms": dp_ms.get(name),
         "feed_launches": feed_launches[name],
         "ring_dp_launches": ring_dp_launches[name],
-        "cp_launches": cp_launches[name], "a11_launches": a11_launches[name]}
+        "cp_launches": cp_launches[name], "a11_launches": a11_launches[name],
+        "tp_launches": tp_launches[name]}
         for name, (src, tpu) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4684,5 +5192,11 @@ if __name__ == "__main__":
         cp_p2p_main(sys.argv[1:])
     elif "--cp-cards" in sys.argv:
         cp_cards_main(int(sys.argv[sys.argv.index("--cp-cards") + 1]))
+    elif "--tp-rank" in sys.argv:
+        tp_rank_main(sys.argv[1:])
+    elif "--tp-cards" in sys.argv:
+        tp_cards_main(int(sys.argv[sys.argv.index("--tp-cards") + 1]))
+    elif "--hosts" in sys.argv:
+        hosts_main(int(sys.argv[sys.argv.index("--hosts") + 1]))
     else:
         main()

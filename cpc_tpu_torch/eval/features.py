@@ -4,7 +4,8 @@ sliding windows and return the (z, c) trajectories.
 Port of `cpc_tpu/eval/features.py::extract_features`. Windows run in
 fixed-size batches on the device the model's params are on, under
 `torch.inference_mode()`; the window count is padded to a multiple of
-`batch_windows` with zero windows and the tail is trimmed. Overlapping
+`batch_windows` with zero windows and the tail is trimmed; an fp32 model
+runs with TF32 off (`utils.precision.exact_for`). Overlapping
 windows (hop < window) stitch one continuous trajectory: every window
 contributes the latents of its final `hop` samples (the first window
 contributes everything), so each latent appears exactly once and the gar
@@ -20,6 +21,7 @@ import torch
 
 from cpc_tpu_torch.models.cpc import CPCModel
 from cpc_tpu_torch.ops.dsp import prepare_waveform
+from cpc_tpu_torch.utils.precision import exact_for
 
 
 def extract_features(
@@ -51,7 +53,7 @@ def extract_features(
 
     device = next(model.parameters()).device
     zs, cs = [], []
-    with torch.inference_mode():
+    with torch.inference_mode(), exact_for(model.dtype):
         for i in range(0, len(wins), batch_windows):
             batch = torch.from_numpy(wins[i:i + batch_windows]).to(device)
             z, c = model.latents(prepare_waveform(batch, normalize=normalize))

@@ -37,6 +37,7 @@ from cpc_tpu_torch.data.dataset import ProbeDataset
 from cpc_tpu_torch.models.cpc import CPCModel
 from cpc_tpu_torch.ops.dsp import prepare_waveform
 from cpc_tpu_torch.train.train_step import Optimizer
+from cpc_tpu_torch.utils.precision import exact_for
 
 
 @dataclasses.dataclass
@@ -59,13 +60,14 @@ def _extract(model: CPCModel, snippets: np.ndarray, feature: str,
 
     Inputs go through the same prepare_waveform (dequantization and
     per-snippet normalization) the training step applies on the device, so
-    frozen features come from the distribution the model was trained on."""
+    frozen features come from the distribution the model was trained on;
+    an fp32 model runs with TF32 off, as it trained."""
     device = _model_device(model)
     n_pad = (-len(snippets)) % batch
     padded = np.concatenate(
         [snippets, np.zeros((n_pad,) + snippets.shape[1:], snippets.dtype)])
     outs = []
-    with torch.inference_mode():
+    with torch.inference_mode(), exact_for(model.dtype):
         for i in range(0, len(padded), batch):
             x = torch.from_numpy(padded[i:i + batch]).to(device)
             z, c = model.latents(prepare_waveform(x, normalize=normalize))

@@ -34,7 +34,6 @@ Contracts, as in the JAX package:
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -45,6 +44,7 @@ from cpc_tpu_torch.config import ModelConfig
 from cpc_tpu_torch.models.cpc import CPCModel
 from cpc_tpu_torch.models.encoder import encoder_width
 from cpc_tpu_torch.models.transformer import carry_decode_model, decode_carry
+from cpc_tpu_torch.utils.precision import fp32_exact
 
 
 def receptive_field(kernels, strides) -> Tuple[int, int]:
@@ -79,21 +79,6 @@ def portable_stream_model(cfg: ModelConfig, device=None) -> CPCModel:
     ar = dataclasses.replace(cfg.ar, use_pallas=False, attn_impl="xla")
     return CPCModel(dataclasses.replace(cfg, encoder=enc, ar=ar,
                                         dtype="float32"), device=device)
-
-
-@contextlib.contextmanager
-def fp32_exact():
-    """TF32 off for cuDNN and cuBLAS inside the block; the caller's
-    settings are restored after."""
-    kept = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = kept
 
 
 class StreamingExtractor:

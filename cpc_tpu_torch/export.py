@@ -43,7 +43,7 @@ same reason. The live paths (training, `extract_features`,
 A program's convs follow the cuDNN settings of the process that calls
 it, and torch's default lets cuDNN take TF32 for fp32 convs: a streaming
 step agrees with `StreamingExtractor` at fp32 when it is called with TF32
-off (`eval.streaming.fp32_exact`), as `serve --artifact` calls it.
+off (`utils.precision.fp32_exact`), as `serve --artifact` calls it.
 """
 
 from __future__ import annotations

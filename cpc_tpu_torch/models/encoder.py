@@ -54,7 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from cpc_tpu_torch.config import EncoderConfig
 from cpc_tpu_torch.models._init import Dense, lecun_normal_
-from cpc_tpu_torch.ops.conv_cuda import (conv1d, fused_conv_encoder,
+from cpc_tpu_torch.ops.conv_cuda import (conv1d, conv2d, fused_conv_encoder,
                                          same_padding)
 from cpc_tpu_torch.ops.ring_util import ppermute, psum, ring_perm
 from cpc_tpu_torch.ops.scalogram import scalogram
@@ -182,14 +182,24 @@ class ConvEncoder(nn.Module):
 
     def _layer(self, h: torch.Tensor, i: int) -> torch.Tensor:
         """One (conv, norm, activation) block on (B, C, T): the remat unit."""
-        cfg = self.config
         conv = getattr(self, f"conv{i}")
-        k, s = cfg.kernels[i], cfg.strides[i]
-        if cfg.padding == "SAME":
-            h = F.pad(h, same_padding(h.shape[-1], k, s))
-        h = conv1d(h, conv.weight.to(self.dtype), conv.bias.to(self.dtype), s)
-        if cfg.norm != "none":
-            h = getattr(self, f"norm{i}")(h)
+        h = conv1d(self._pad(h, i), conv.weight.to(self.dtype),
+                   conv.bias.to(self.dtype), self.config.strides[i])
+        return self._finish(h, i)
+
+    def _pad(self, h: torch.Tensor, i: int) -> torch.Tensor:
+        """Layer i's input padded as the config's padding says."""
+        cfg = self.config
+        if cfg.padding != "SAME":
+            return h
+        return F.pad(h, same_padding(h.shape[-1], cfg.kernels[i],
+                                     cfg.strides[i]))
+
+    def _finish(self, h: torch.Tensor, i: int, ring=None) -> torch.Tensor:
+        """Layer i's norm (its statistics over `ring` too, `_Norm`) and
+        activation."""
+        if self.config.norm != "none":
+            h = getattr(self, f"norm{i}")(h, ring)
         return self.activation(h)
 
     def _cp_layer(self, h: torch.Tensor, i: int, ring) -> torch.Tensor:
@@ -213,9 +223,7 @@ class ConvEncoder(nn.Module):
         h = torch.cat(parts, dim=-1) if len(parts) > 1 else h
         conv = getattr(self, f"conv{i}")
         h = conv1d(h, conv.weight.to(self.dtype), conv.bias.to(self.dtype), s)
-        if cfg.norm != "none":
-            h = getattr(self, f"norm{i}")(h, ring)
-        return self.activation(h)
+        return self._finish(h, i, ring)
 
     def _cp_forward(self, x: torch.Tensor, ring) -> torch.Tensor:
         """This rank's shard of the waveform, (B, S_loc) or (B, S_loc, 1),
@@ -242,7 +250,9 @@ class ConvEncoder(nn.Module):
                 h = self._cp_layer(h, i, ring)
         return h.transpose(1, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, layer=None) -> torch.Tensor:
+        """`layer(h, i)` runs block i, `_layer` unless tensor parallelism
+        (`parallel/tp.py`) passes its own; use_pallas runs the kernels."""
         cfg = self.config
         if x.dim() == 3:
             x = x[..., 0]
@@ -263,12 +273,13 @@ class ConvEncoder(nn.Module):
                 ).permute(0, 2, 1) for c in convs],
                 [c.bias.to(self.dtype) for c in convs], cfg.kernels,
                 cfg.strides)
+        layer = layer or self._layer
         h = x[:, None, :]  # (B, 1, T)
         for i in range(len(cfg.kernels)):
             if cfg.remat and torch.is_grad_enabled():
-                h = checkpoint(self._layer, h, i, use_reentrant=False)
+                h = checkpoint(layer, h, i, use_reentrant=False)
             else:
-                h = self._layer(h, i)
+                h = layer(h, i)
         return h.transpose(1, 2)  # (B, T', C)
 
 
@@ -322,17 +333,27 @@ class ScalogramEncoder(nn.Module):
 
     def _layer(self, h: torch.Tensor, i: int) -> torch.Tensor:
         """One (conv2d, norm, activation) block on (B, C, T, F)."""
-        (kt, kf), ts, fs, _ = self.geometry[i]
+        _, ts, fs, _ = self.geometry[i]
         conv = getattr(self, f"conv2d_{i}")
-        h = F.pad(h, same_padding(h.shape[-1], kf, fs)
-                  + same_padding(h.shape[-2], kt, ts))
-        h = F.conv2d(h, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
-                     stride=(ts, fs))
+        h = conv2d(self._pad(h, i), conv.weight.to(self.dtype),
+                   conv.bias.to(self.dtype), (ts, fs))
+        return self._finish(h, i)
+
+    def _pad(self, h: torch.Tensor, i: int) -> torch.Tensor:
+        """Block i's input with flax's SAME padding on time and freq."""
+        (kt, kf), ts, fs, _ = self.geometry[i]
+        return F.pad(h, same_padding(h.shape[-1], kf, fs)
+                     + same_padding(h.shape[-2], kt, ts))
+
+    def _finish(self, h: torch.Tensor, i: int, ring=None) -> torch.Tensor:
+        """Block i's norm (statistics over `ring` too) and activation."""
         if self.config.norm != "none":
-            h = getattr(self, f"norm{i}")(h)
+            h = getattr(self, f"norm{i}")(h, ring)
         return self.activation(h)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, layer=None) -> torch.Tensor:
+        """`layer(h, i)` runs block i, `_layer` unless tensor parallelism
+        passes its own."""
         cfg = self.config
         if x.dim() == 3:
             x = x[..., 0]
@@ -340,12 +361,13 @@ class ScalogramEncoder(nn.Module):
                       hop=cfg.scalogram_hop, n_bins=cfg.scalogram_n_bins,
                       fmin=cfg.scalogram_fmin, fmax=cfg.scalogram_fmax,
                       scale=cfg.scalogram_scale, sample_rate=16_000)
+        layer = layer or self._layer
         h = s[:, None].to(self.dtype)  # (B, 1, T, F)
         for i in range(len(self.geometry)):
             if cfg.remat and torch.is_grad_enabled():
-                h = checkpoint(self._layer, h, i, use_reentrant=False)
+                h = checkpoint(layer, h, i, use_reentrant=False)
             else:
-                h = self._layer(h, i)
+                h = layer(h, i)
         B, C, T, n_freq = h.shape
         return self.proj(h.permute(0, 2, 3, 1).reshape(B, T, n_freq * C))
 

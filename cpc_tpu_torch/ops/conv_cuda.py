@@ -54,6 +54,7 @@ import torch.nn.functional as F
 
 from cpc_tpu_torch.ops._build import check_launch, load_library
 from cpc_tpu_torch.ops.infonce import WIRE_DTYPES
+from cpc_tpu_torch.utils.precision import cudnn_deterministic
 
 
 def same_padding(t_in: int, k: int, s: int) -> Tuple[int, int]:
@@ -71,12 +72,63 @@ def conv1d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     outputs of magnitude 5), so the CPU runs the product in fp32 and rounds
     it once, which is what a bf16 conv with fp32 accumulation computes, in
     the backward too. A graph being exported (`export.py`) takes the same
-    route on any device, since the artifact runs on the CPU as well."""
+    route on any device, since the artifact runs on the CPU as well. An
+    fp32 one-channel conv on the card that a gradient will flow through
+    (the encoder's first layer in training) takes `_Repeatable`."""
     if (h.device.type == "cpu" or torch.compiler.is_exporting()) \
             and h.dtype != torch.float32:
         return F.conv1d(h.float(), w.float(), b.float(),
                         stride=stride).to(h.dtype)
+    if w.shape[1] == 1 and _repeatable(h, w):
+        return _Repeatable.apply(h, w, b, stride)
     return F.conv1d(h, w, b, stride=stride)
+
+
+def conv2d(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           stride) -> torch.Tensor:
+    """F.conv2d, except that an fp32 conv on the card that a gradient will
+    flow through (the scalogram encoder's in training) takes
+    `_Repeatable`."""
+    if _repeatable(h, w):
+        return _Repeatable.apply(h, w, b, stride)
+    return F.conv2d(h, w, b, stride=stride)
+
+
+def _repeatable(h: torch.Tensor, w: torch.Tensor) -> bool:
+    return (h.is_cuda and h.dtype == torch.float32 and w.requires_grad
+            and torch.is_grad_enabled()
+            and not torch.compiler.is_exporting())
+
+
+class _Repeatable(torch.autograd.Function):
+    """F.conv1d or F.conv2d whose backward runs cuDNN's deterministic
+    algorithms (`utils.precision.cudnn_deterministic`). In fp32 cuDNN's
+    default backward algorithms for the conv1d encoder's first layer (one
+    input channel) and for the scalogram encoder's Conv2d layers sum with
+    atomics and give other bits each run (2.3e-10 apart on an H100 80GB
+    HBM3), so an fp32 run resumed from a checkpoint, or run twice, would
+    not be the same run (ROADMAP C16). The forward, and every other op,
+    keeps the caller's algorithms."""
+
+    @staticmethod
+    def forward(ctx, h, w, b, stride):
+        ctx.save_for_backward(h, w)
+        ctx.stride = stride
+        conv = F.conv1d if h.dim() == 3 else F.conv2d
+        return conv(h, w, b, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        grad = torch.nn.grad
+        grad_input, grad_weight = ((grad.conv1d_input, grad.conv1d_weight)
+                                   if h.dim() == 3 else
+                                   (grad.conv2d_input, grad.conv2d_weight))
+        with cudnn_deterministic():
+            dh = grad_input(h.shape, w, g, stride=ctx.stride) \
+                if ctx.needs_input_grad[0] else None
+            dw = grad_weight(h, w.shape, g, stride=ctx.stride)
+        return dh, dw, g.sum([0, *range(2, g.dim())]), None
 
 
 def conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],

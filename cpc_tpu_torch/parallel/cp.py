@@ -37,11 +37,11 @@ The training step (`make_cp_train_step`, `make_cp_step_fns`):
     all_reduce, not averaged as data parallelism averages them;
   * grad_norm and the update follow, as in the single-device step.
 
-Unlike the JAX trainer, 'cp' runs across processes: there each host feeds
-its own rows, so 'cp' (no batch axis) is refused across hosts; here every
-rank is a process on one host that assembles the same global batch, as
-JAX's devices of one process do. Runs across hosts wait for ROADMAP.md
-A10d.
+Unlike the JAX trainer, 'cp' runs across processes and across hosts:
+there each host feeds its own rows, so 'cp' (no batch axis) is refused
+across hosts; here every rank, on any host, assembles the same seeded
+global batch from the shared corpus, as JAX's devices of one process do,
+and takes its shard of it.
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ from cpc_tpu_torch.ops.dsp import augment_waveform
 from cpc_tpu_torch.ops.infonce_ring import ring_infonce_allsteps_ctx
 from cpc_tpu_torch.ops.ring_util import axis_env
 from cpc_tpu_torch.parallel.mesh import AXES, ProcessMesh, axis_sizes
+from cpc_tpu_torch.utils.precision import exact_for
 
 RING_IMPLS = ("ring", "zigzag")
 
@@ -219,6 +220,13 @@ def cp_sizes(cfg: CPCConfig, world: int) -> Dict[str, int]:
     axes = tuple(t.mesh_axes)
     if t.parallel == "cp" and axes == ("data",):
         axes = ("ctx",)
+    if "model" in axes:
+        raise ValueError(
+            f"train.parallel={t.parallel!r} with a 'model' axis "
+            f"(train.mesh_axes={axes}): tensor parallelism does not combine "
+            f"with context parallelism, as in the JAX package; use "
+            f"train.parallel='dp' (the model axis then holds replicas) or "
+            f"parallel.tp.make_tp_train_step")
     sizes = axis_sizes(t.mesh_shape, axes, world)
     if t.parallel == "dpcp" and not set(AXES) <= set(axes):
         raise ValueError(
@@ -317,9 +325,10 @@ def make_cp_train_step(cfg: CPCConfig, model, mesh: ProcessMesh, *,
                if cfg.data.augment else None)
         nan_debug = torch.is_anomaly_enabled()
         # the backward runs in this thread: thread ranks' collectives, and
-        # a remat recompute that reads the axis env
+        # a remat recompute that reads the axis env; an fp32 model with
+        # TF32 off
         with torch.autograd.set_multithreading_enabled(False), \
-                axis_env(mesh):
+                axis_env(mesh), exact_for(model.dtype):
             loss, metrics = loss_fn(model, batch, augment=aug)
             if nan_debug:
                 _checked_backward(loss, opt.count + 1)
@@ -386,7 +395,7 @@ def make_cp_step_fns(cfg: CPCConfig, model, mesh: Optional[ProcessMesh] = None):
 
     @torch.no_grad()
     def eval_step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with axis_env(mesh):
+        with axis_env(mesh), exact_for(model.dtype):
             return loss_fn(model, batch)[1]
 
     if cfg.data.device_corpus:

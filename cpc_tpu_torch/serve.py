@@ -22,7 +22,7 @@ backends behind one stream interface (`push`, `pending_samples`, `down`,
     the `PATH.json` sidecar. It steps in fixed windows and drops up to one
     window's tail at EOF (counted in the summary), and a transformer
     artifact's stream stops at its positional table. It calls the program
-    with TF32 off (`eval.streaming.fp32_exact`), as the live extractor
+    with TF32 off (`utils.precision.fp32_exact`), as the live extractor
     pushes: the program's convs follow the process's cuDNN settings, and
     torch's default lets cuDNN take TF32.
 
@@ -59,10 +59,10 @@ import torch
 
 from cpc_tpu_torch.config import from_dict
 from cpc_tpu_torch.eval.cli import cuda_or_raise, load_weights
-from cpc_tpu_torch.eval.streaming import (StreamingExtractor, fp32_exact,
-                                          receptive_field)
+from cpc_tpu_torch.eval.streaming import StreamingExtractor, receptive_field
 from cpc_tpu_torch.export import avals, load_artifact
 from cpc_tpu_torch.models.cpc import CPCModel
+from cpc_tpu_torch.utils.precision import fp32_exact
 
 
 def _read_chunks(stream, nbytes: int):

@@ -38,10 +38,16 @@ card, each given the same command and its rank, either
         --coordinator HOST:PORT --num-processes N --process-id i ...
 
 or `--distributed` under a launcher that sets MASTER_ADDR, MASTER_PORT,
-RANK and WORLD_SIZE (torchrun). Each rank trains on its rows of the global
-`--batch-size`; NCCL on cuda, gloo with `--device cpu` (a rehearsal on CPU
-processes). The workdir is shared: rank 0 alone writes it (the synthetic
-corpus, then a barrier; config, metrics, checkpoints), every rank reads it.
+RANK and WORLD_SIZE (torchrun, on each host). Each rank trains on its rows
+of the global `--batch-size` on the card of its local rank (its place
+among its host's ranks: LOCAL_RANK where the launcher sets it, else found
+from the ranks' hostnames); NCCL on cuda, gloo with `--device cpu` (a
+rehearsal on CPU processes). The workdir is shared, across hosts too: rank
+0 alone writes it (the synthetic corpus, then a barrier; config, metrics,
+checkpoints), every rank reads it. `--set train.mesh_axes=data,model`
+with a `train.mesh_shape` makes the model axis's ranks replicas that share
+their rows, as the JAX trainer does; tensor parallelism proper is
+`cpc_tpu_torch.parallel.tp.make_tp_train_step`.
 """
 
 from __future__ import annotations
@@ -136,16 +142,21 @@ def build_argparser() -> argparse.ArgumentParser:
                         "repeatable")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: cuda; under "
-                        "data parallelism each rank takes cuda:<its rank>)")
+                        "data parallelism each rank takes cuda:<its local "
+                        "rank>, its place among its host's ranks)")
     p.add_argument("--distributed", action="store_true",
                    help="one process of a data-parallel run, its rank and "
                         "world from the launcher's environment (MASTER_ADDR, "
-                        "MASTER_PORT, RANK, WORLD_SIZE); launch the same "
-                        "command once a card. The workdir must be shared")
+                        "MASTER_PORT, RANK, WORLD_SIZE, and LOCAL_RANK, "
+                        "LOCAL_WORLD_SIZE where torchrun sets them); launch "
+                        "the same command once a card, on every host. The "
+                        "workdir must be shared")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="rank 0's address for the rendezvous (implies "
                         "--distributed); requires --num-processes and "
-                        "--process-id")
+                        "--process-id. At 127.0.0.1 every rank is on this "
+                        "host; at a host's address ranks may be on several, "
+                        "each placed by its local rank among its host's")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p

@@ -47,8 +47,10 @@ the update is the single-device step on the global batch. A mesh of one
 rank runs the same collectives. With `loss.ring` the all-steps pool is
 swept round the ranks instead of gathered (`ops/infonce_ring.py`).
 `train.parallel` 'cp' and 'dpcp' build the context-parallel steps of
-`parallel/cp.py` instead; tensor parallelism ('model' axes) raises, naming
-ROADMAP.md A10c (`check_supported`).
+`parallel/cp.py` instead. A 'model' axis under 'dp' holds replicas
+(`dp_mesh`): each data row's ranks step on the same rows, and the pool's
+gather and the averages run over the data axis alone; tensor parallelism
+proper is `parallel/tp.py::make_tp_train_step`.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ from cpc_tpu_torch.ops.dsp import augment_waveform
 from cpc_tpu_torch.ops.infonce import infonce_loss_and_metrics
 from cpc_tpu_torch.ops.infonce_fused import fused_heads_infonce
 from cpc_tpu_torch.parallel.dp import average, dp_eval_step, dp_train_step
-from cpc_tpu_torch.parallel.mesh import mesh_size
+from cpc_tpu_torch.parallel.mesh import axis_sizes, mesh_size
+from cpc_tpu_torch.utils.precision import exact_for
 
 
 class StepFns(NamedTuple):
@@ -104,10 +107,13 @@ def global_norm(tensors) -> torch.Tensor:
 
 class Optimizer:
     """[clip_by_global_norm] -> Adam or AdamW -> -lr(count), over the fp32
-    parameters `params` (name -> tensor), updated in place by `step`."""
+    parameters `params` (name -> tensor), updated in place by `step`.
+    `norm(grads)` is the clip's global norm: `global_norm` of the values
+    (`parallel/tp.py` sets its own over shards)."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], t: TrainConfig):
         self.params = dict(params)
+        self.norm = lambda grads: global_norm(grads.values())
         self.schedule = make_schedule(t)
         self.b1, self.b2, self.eps = t.beta1, t.beta2, 1e-8
         self.weight_decay = t.weight_decay
@@ -119,7 +125,7 @@ class Optimizer:
     @torch.no_grad()
     def step(self, grads: Mapping[str, torch.Tensor]) -> None:
         if self.clip > 0:
-            norm = global_norm(grads.values())
+            norm = self.norm(grads)
             if not norm < self.clip:
                 grads = {k: g / norm * self.clip for k, g in grads.items()}
         lr = self.schedule(self.count)
@@ -178,12 +184,32 @@ def check_supported(cfg: CPCConfig, mesh=None) -> None:
         raise ValueError(
             f"train.mesh_axes={tuple(t.mesh_axes)} under train.parallel="
             f"'dp': a 'ctx' axis needs train.parallel 'dpcp'")
-    if d.batch_size % world:
+    # the rows split over 'data' alone: a 'model' axis's ranks are replicas
+    data = world // axis_sizes(t.mesh_shape, t.mesh_axes, world)["model"]
+    if d.batch_size % data:
         raise ValueError(
-            f"batch_size {d.batch_size} is not divisible by the {world}-way "
+            f"batch_size {d.batch_size} is not divisible by the {data}-way "
             f"data axis; pass a compatible mesh= or adjust data.batch_size")
     if t.accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {t.accum_steps}")
+
+
+def dp_mesh(cfg: CPCConfig, mesh):
+    """`mesh` with the 'model' axis that train.mesh_shape / mesh_axes name
+    under train.parallel 'dp' (None without a mesh): its ranks hold
+    replicas of the model, as the JAX trainer runs a ('data', 'model')
+    mesh's data-parallel step over 'data', so each data row's ranks step on
+    the same rows and the DP collectives run over the data axis alone
+    (`ProcessMesh.data_mesh`). A process mesh forms its groups here, a
+    collective every rank makes."""
+    if mesh is None:
+        return None
+    t = cfg.train
+    model = axis_sizes(t.mesh_shape, t.mesh_axes, mesh.size)["model"]
+    if mesh.model == model:
+        return mesh
+    from cpc_tpu_torch.parallel.multihost import with_model
+    return with_model(mesh, model)
 
 
 def init_state(cfg: CPCConfig, device=None) -> CPCModel:
@@ -249,6 +275,7 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
         from cpc_tpu_torch.parallel.cp import make_cp_step_fns
         return make_cp_step_fns(cfg, model, mesh)
     check_supported(cfg, mesh)
+    mesh = dp_mesh(cfg, mesh)
     opt = make_optimizer(cfg, model)
     loss_cfg = cfg.model.loss
     normalize = cfg.data.normalize
@@ -290,7 +317,11 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
         microbatches, each its own negative pool; grads and metrics are
         averaged, and then over the ranks of `mesh`. Metrics stay on the
         device (reading them syncs); p.grad keeps this rank's sum of its
-        microbatches' gradients."""
+        microbatches' gradients. An fp32 model steps with TF32 off."""
+        with exact_for(model.dtype):
+            return _train_step(batch, mesh)
+
+    def _train_step(batch: torch.Tensor, mesh) -> Dict[str, torch.Tensor]:
         B = batch.shape[0]
         if B % accum:
             raise ValueError(
@@ -327,7 +358,8 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
 
     @torch.no_grad()
     def eval_step(batch: torch.Tensor, mesh=None) -> Dict[str, torch.Tensor]:
-        metrics = loss_fn(model, batch, mesh=mesh)[1]
+        with exact_for(model.dtype):
+            metrics = loss_fn(model, batch, mesh=mesh)[1]
         if mesh is not None:
             metrics = _averaged({}, metrics, mesh)[1]
         return metrics
@@ -342,8 +374,8 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
             return batch_eval(corpus.index_select(0, idx), mesh)
 
     if mesh is not None:
-        train_step = dp_train_step(train_step, mesh)
-        eval_step = dp_eval_step(eval_step, mesh)
+        train_step = dp_train_step(train_step, mesh.data_mesh())
+        eval_step = dp_eval_step(eval_step, mesh.data_mesh())
     return StepFns(train_step=train_step, eval_step=eval_step, optimizer=opt,
                    loss_fn=loss_fn)
 

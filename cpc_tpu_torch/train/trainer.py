@@ -23,7 +23,8 @@ the same loop runs the CP steps: the model's gar takes ring attention
 (`init_state`), every rank stages the WHOLE global batch (or index vector),
 and the step takes its shard after preparing it; checkpoints, metrics and
 resume are as under data parallelism. Without a mesh 'cp' runs a ring of
-one rank. Tensor parallelism waits (ROADMAP.md A10c).
+one rank. A 'model' axis under 'dp' (train.mesh_axes data,model) holds
+replicas of the model, as in the JAX trainer (`train_step.dp_mesh`).
 
 Under `data.device_corpus` the trainer uploads the training corpus to its
 card once (`data.loader.load_device_corpus`; every rank its own copy under
@@ -54,7 +55,8 @@ from cpc_tpu_torch.data.loader import (Batcher, load_device_corpus,
 from cpc_tpu_torch.parallel import multihost
 from cpc_tpu_torch.train.checkpoint import CheckpointManager
 from cpc_tpu_torch.train.metrics import MetricWriter
-from cpc_tpu_torch.train.train_step import init_state, make_step_fns
+from cpc_tpu_torch.train.train_step import (dp_mesh, init_state,
+                                             make_step_fns)
 
 
 class Trainer:
@@ -73,6 +75,9 @@ class Trainer:
         if mesh is not None and self.device != mesh.device:
             raise ValueError(f"device {self.device} is not the mesh's "
                              f"device {mesh.device} for rank {mesh.rank}")
+        if cfg.train.parallel == "dp":
+            # a 'model' axis holds replicas: its ranks share their rows
+            mesh = self.mesh = dp_mesh(cfg, mesh)
         self.model = init_state(cfg, self.device)
         self.steps = make_step_fns(cfg, self.model, mesh)
         # data parallelism stages this rank's rows; a CP step takes the

@@ -484,7 +484,7 @@ CHECKS = [
     (_changed(_cfg(), "model", encoder=tcfg.EncoderConfig(kind="scalogram")),
      "halo exchange"),
     (_cfg("dpcp", (2,), ("ctx",)), "needs a 2-D mesh"),
-    (_cfg("cp", (2, 1), ("data", "model")), "A10c"),
+    (_cfg("cp", (2, 1), ("data", "model")), "does not combine"),
     (_cfg("cp", (2, 1), ("data", "ctx")), "shards time alone"),
 ]
 

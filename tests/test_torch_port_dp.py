@@ -13,9 +13,9 @@
   * `dropout_generator`: rank 0 draws what it drew before ranks existed,
     other ranks draw otherwise;
   * the checks: a mesh shape that is not the world, a batch the world does
-    not divide, the CLI's flags, two NCCL ranks on one card, and the
-    parallel mode that waits (tensor parallelism, naming ROADMAP.md A10c);
-    context parallelism and `loss.ring` run on a mesh.
+    not divide, the CLI's flags, two NCCL ranks on one card; context
+    parallelism, 'model' axes under 'dp' and `loss.ring` run on a mesh, and
+    a launcher's layout across hosts is taken.
 
 Everything runs on the CPU with one torch thread.
 """
@@ -404,16 +404,17 @@ def _cp_cfg(**train):
     ("train", dict(mesh_shape=(1,), mesh_axes=("model",))),
 ])
 def test_waiting_parallel_modes_name_a10(section, fields):
-    # 'cp' and 'dpcp' run on a one-rank mesh; 'model' axes still wait,
-    # naming A10c
+    # 'cp' and 'dpcp' run on a one-rank mesh, and so do 'model' axes under
+    # 'dp' (replicas; tensor parallelism itself is parallel/tp.py, in
+    # tests/test_torch_port_tp.py): no mode waits any more
     cfg = _cp_cfg(**fields)
-    if "model" in cfg.train.mesh_axes:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A10c"):
-            make_step_fns(cfg, CPCModel(cfg.model), _mesh(1))
-        return
+    from cpc_tpu_torch.parallel.mesh import thread_meshes
     from cpc_tpu_torch.train.train_step import init_state
     model = init_state(cfg)
-    m = make_step_fns(cfg, model, _mesh(1)).train_step(_batches(1)[0])
+    # the DP step's averages need a group: a thread rank's of one
+    mesh = (thread_meshes(1, "cpu")[0] if "model" in cfg.train.mesh_axes
+            else _mesh(1))
+    m = make_step_fns(cfg, model, mesh).train_step(_batches(1)[0])
     assert all(bool(torch.isfinite(v).all()) for v in m.values())
 
 
@@ -446,13 +447,29 @@ def test_loss_ring_under_a_mesh_names_a10():
 
 
 def test_a_run_across_hosts_names_a10d(monkeypatch):
-    # a launcher's env:// with ranks on two hosts: refused before the group
-    # forms
+    # a launcher's env:// with ranks on two hosts (two of four here) is
+    # taken, not refused: the host's layout comes from LOCAL_RANK and
+    # LOCAL_WORLD_SIZE before the group forms (runs across hosts in
+    # tests/test_torch_port_multihost.py)
     for k, v in (("WORLD_SIZE", "4"), ("RANK", "0"), ("LOCAL_RANK", "0"),
                  ("LOCAL_WORLD_SIZE", "2")):
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10d"):
+    seen = {}
+
+    class Formed(Exception):
+        pass
+
+    def init(backend, **kw):
+        seen.update(kw, backend=backend)
+        raise Formed
+    monkeypatch.setattr(multihost, "share_host_threads",
+                        lambda n: seen.setdefault("local_world", n))
+    monkeypatch.setattr(multihost.dist, "init_process_group", init)
+    with pytest.raises(Formed):
         multihost.initialize(device="cpu")
+    assert seen == {"init_method": "env://", "world_size": 4, "rank": 0,
+                    "timeout": seen["timeout"], "backend": "gloo",
+                    "local_world": 2}
     assert not dist.is_initialized()
 
 

@@ -256,7 +256,8 @@ SLICE_MODULES = [
     "cpc_tpu_torch.utils", "cpc_tpu_torch.utils.profiling",
     "cpc_tpu_torch.export", "cpc_tpu_torch.ops.ring_util",
     "cpc_tpu_torch.ops.infonce_ring", "cpc_tpu_torch.ops.attention_ring",
-    "cpc_tpu_torch.ops.attention_zigzag", "cpc_tpu_torch.parallel.cp"]
+    "cpc_tpu_torch.ops.attention_zigzag", "cpc_tpu_torch.parallel.cp",
+    "cpc_tpu_torch.parallel.tp", "cpc_tpu_torch.utils.precision"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cpc_tpu")
 
 

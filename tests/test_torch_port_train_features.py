@@ -462,9 +462,12 @@ def test_cli_trains_under_torch_default_cudnn_settings(corpus, tmp_path,
     the card under torch's default cuDNN settings, deterministic and
     benchmark off (chip_smoke.py phases 23(d), 24(d), 24(g)), and rest on
     them: no module of the port sets either, or asks for deterministic
-    algorithms, and the CLI, and so the supervisor's child, which is the
-    same CLI, trains under them. benchmark=True would pick each conv's
-    algorithm by timing, so two runs could sum in different orders."""
+    algorithms (but `utils/precision.py::cudnn_deterministic`, through
+    setattr, inside the backward of the fp32 convs whose default sums with
+    atomics: ROADMAP C16, test_repeatable_conv_backward), and the CLI, and
+    so the supervisor's child, which is the same CLI, trains under them.
+    benchmark=True would pick each conv's algorithm by timing, so two runs
+    could sum in different orders."""
     root = pathlib.Path(cli.__file__).resolve().parents[1]
     found = []
     for path in sorted(root.rglob("*.py")):
@@ -494,3 +497,99 @@ def test_cli_trains_under_torch_default_cudnn_settings(corpus, tmp_path,
     assert cli.main([*TINY, "--data", corpus, "--workdir", str(tmp_path),
                      "--steps", "1"]) == 0
     assert seen == [(False, False)]
+
+
+# -------------------------------------------------------------------- C15
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fp32_models_compute_without_tf32(dtype, monkeypatch):
+    """ROADMAP C15: an fp32 model's training step (forward, backward and
+    update), evaluation step, offline extraction and the probes'
+    extraction run their convs with cuDNN's and cuBLAS's TF32 off,
+    whatever the caller's settings; a bf16 model runs under the caller's;
+    cuDNN's `deterministic` stays the caller's in either (C16 is repaired
+    in the backward of the convs at fault, test_repeatable_conv_backward);
+    and outside
+    each call the flags read as the caller left them. Recorded on the CPU
+    by wrapping F.conv1d (the forward) and a hook on the first conv's
+    weight gradient (the backward)."""
+    from cpc_tpu_torch.eval import probes
+    from cpc_tpu_torch.eval.features import extract_features
+
+    def flags():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.deterministic)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    seen = {"forward": [], "backward": []}
+    conv = torch.nn.functional.conv1d
+
+    def spy(*args, **kwargs):
+        seen["forward"].append(flags())
+        return conv(*args, **kwargs)
+    monkeypatch.setattr(torch.nn.functional, "conv1d", spy)
+    cfg = tcfg.apply_overrides(tcfg.presets.by_name("tpu_fast"),
+                               TINY_SETS + [f"model.dtype={dtype}"])
+    model = init_state(cfg)
+    model.encoder.conv0.weight.register_hook(
+        lambda g: seen["backward"].append(flags()))
+    steps = make_step_fns(cfg, model)
+    batch = torch.from_numpy(np.random.default_rng(0).integers(
+        -3000, 3000, (4, 2560)).astype(np.int16))
+    steps.train_step(batch)
+    assert flags() == (True, True, False)
+    steps.eval_step(batch)
+    wave = np.random.default_rng(1).standard_normal(5120).astype(np.float32)
+    extract_features(model, wave, window=2560, batch_windows=2)
+    probes._extract(model, batch.numpy(), "c", batch=4)
+    assert flags() == (True, True, False)
+    want = ((False, False, False) if dtype == "float32"
+            else (True, True, False))
+    assert len(seen["forward"]) == 4 * 5 and len(seen["backward"]) == 1
+    assert set(seen["forward"]) == set(seen["backward"]) == {want}
+
+
+@pytest.mark.parametrize("kernel,stride,needs_input", [
+    ((10,), 5, False), ((4,), 2, True), ((3,), 1, True),
+    ((3, 3), (1, 1), False), ((4, 2), (2, 1), True)])
+def test_repeatable_conv_backward(kernel, stride, needs_input, monkeypatch):
+    """ROADMAP C16: the route of the fp32 convs whose cuDNN backward sums
+    with atomics (`conv_cuda._Repeatable`, conv1d and conv2d) against
+    autograd through F.conv1d / F.conv2d, on the CPU: the same forward,
+    the same gradients, computed with cuDNN's `deterministic` on and the
+    caller's flag back after."""
+    from cpc_tpu_torch.ops.conv_cuda import _Repeatable
+    rng = np.random.default_rng(len(kernel) * 10 + kernel[0])
+    size = (203,) if len(kernel) == 1 else (37, 21)
+    conv = (torch.nn.functional.conv1d if len(kernel) == 1
+            else torch.nn.functional.conv2d)
+    x = torch.from_numpy(rng.standard_normal((3, 2, *size))
+                         .astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((6, 2, *kernel))
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(6).astype(np.float32))
+    got = [t.clone().requires_grad_(r) for t, r in
+           ((x, needs_input), (w, True), (b, True))]
+    want = [t.clone().requires_grad_(r) for t, r in
+            ((x, needs_input), (w, True), (b, True))]
+    seen = []
+    name = f"conv{len(kernel)}d_weight"
+    real = getattr(torch.nn.grad, name)
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cudnn.deterministic)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(torch.nn.grad, name, spy)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    out = _Repeatable.apply(*got, stride)
+    ref = conv(*want, stride=stride)
+    assert torch.equal(out, ref)
+    g = torch.from_numpy(rng.standard_normal(ref.shape).astype(np.float32))
+    out.backward(g)
+    ref.backward(g)
+    assert seen == [True] and not torch.backends.cudnn.deterministic
+    for a, r in zip(got, want):
+        assert (a.grad is None) == (r.grad is None) == (not a.requires_grad)
+        if a.grad is not None:
+            torch.testing.assert_close(a.grad, r.grad, rtol=1e-5, atol=1e-5)

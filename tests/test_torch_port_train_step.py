@@ -43,7 +43,9 @@ from cpc_tpu.train.train_step import make_step_fns as jax_make_step_fns
 from cpc_tpu_torch import config as tcfg
 from cpc_tpu_torch.interop import from_jax_params
 from cpc_tpu_torch.models.cpc import CPCModel
-from cpc_tpu_torch.train.train_step import init_state, make_step_fns
+from cpc_tpu_torch.parallel.mesh import thread_meshes
+from cpc_tpu_torch.train.train_step import (check_supported, init_state,
+                                           make_step_fns)
 
 BATCH, SAMPLES, LR = 4, 2000, 2e-4
 TOL = {"float32": dict(scalar=1e-4, grad=1e-4, encoder_grad=1e-4, acc=0.0),
@@ -173,27 +175,46 @@ def _changed(change):
 
 @pytest.mark.parametrize("change,match", [
     # context parallelism runs (a ring of one rank without a mesh; its
-    # parity is tests/test_torch_port_cp.py's); tensor parallelism still
-    # raises, naming its ROADMAP item
+    # parity is tests/test_torch_port_cp.py's), and so does a 'model' axis
+    # under 'dp' (replicas; tests/test_torch_port_tp.py): no mode is left
+    # unported, and a mesh that is not the world's raises as any does
     (dict(train=dict(parallel="cp"), model=dict(
         ar=tcfg.ArConfig(kind="transformer", d_ar=8, num_layers=1,
                          num_heads=2),
         loss=tcfg.LossConfig(prediction_steps=2, negatives="all_steps"))),
      None),
     (dict(train=dict(mesh_shape=(2, 2), mesh_axes=("data", "model"))),
-     "A10c"),
+     "span all 1 global devices, got 4"),
+    (dict(train=dict(mesh_shape=(1, 1), mesh_axes=("data", "model"))),
+     None),
 ])
 def test_unported_training_modes_raise(change, match):
     cfg = _changed(change)
     if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=match):
             make_step_fns(cfg, CPCModel(cfg.model))
         return
     model = init_state(cfg)
-    assert model.config.ar.attn_impl == "ring"
+    if cfg.train.parallel == "cp":
+        assert model.config.ar.attn_impl == "ring"
     m = make_step_fns(cfg, model).train_step(
         torch.from_numpy(_batches(1)[0]))
     assert all(bool(torch.isfinite(v).all()) for v in m.values())
+
+
+@pytest.mark.parametrize("batch,ok", [(64, True), (62, True), (63, False)])
+def test_batch_divides_the_data_axis_alone(batch, ok):
+    # a 'model' axis under 'dp' holds replicas: the rows split over 'data'
+    # alone, so a (2, 3) mesh takes any even batch, as the JAX trainer does
+    cfg = _changed(dict(train=dict(mesh_shape=(2, 3),
+                                   mesh_axes=("data", "model")),
+                        data=dict(batch_size=batch)))
+    mesh = thread_meshes(6, "cpu", model=3)[0]
+    if ok:
+        check_supported(cfg, mesh)
+        return
+    with pytest.raises(ValueError, match="not divisible by the 2-way data"):
+        check_supported(cfg, mesh)
 
 
 @pytest.mark.parametrize("change", [dict(data=dict(device_corpus=True)),
