@@ -286,10 +286,27 @@ Phases, in order; any failure exits non-zero:
    flash16 attention (the flash kernels on each rank's heads) on (1, 2)
    and (1, 4) at the JAX package's CP tolerances; each TP step's ms beside
    the single-device step's (in turns) and a step's TP collectives (count,
-   bytes, ms).
+   bytes, ms);
+29. `make_multi_step` (`train/train_step.py`): 8 training steps in one
+   CUDA-graph replay against 8 eager `train_step` calls from a twin of the
+   state, two calls (the second on the next stack: the re-seeded
+   generators, the next rows of the optimizer's scalar table), parameters,
+   Adam's moments, count and loss bit-equal (else held at phase 7's
+   bounds with the tensors that part named), the launches captured in the
+   graph equal to the eager steps' own: `tpu_fast` at full width,
+   `--augment`, `all_steps`, `encoder.remat`, `transformer_fast` flash16
+   (clip and warmup) and xla with dropout, `dp_global_negatives` on one
+   NCCL rank, `baseline` fp32 (C16 under capture); a stack of another
+   shape refused; then a step's ms in the graph against eager in 10
+   alternating pairs at N = 8 and 32 on `tpu_fast` and `transformer_fast`
+   flash16, the capture's ms and memory (its peak, the graph's pool), and
+   the device's idle share over one replay and over N eager steps
+   (torch.profiler).
 
-With `--dp-cards N` it runs data parallelism across N cards under NCCL
-instead, what one card cannot run (`dp_cards_main`); with `--cp-cards N`
+With `--multi-step` it runs phases 1, 2 and 29 alone. With `--dp-cards N`
+it runs data parallelism across N cards under NCCL instead, what one card
+cannot run, `make_multi_step` on the N cards among it
+(`dp_cards_main`); with `--cp-cards N`
 context parallelism across N cards (`cp_cards_main`); with `--tp-cards N`
 tensor parallelism across N cards, one NCCL process a card
 (`tp_cards_main`); with `--hosts 2` a run across two "hosts" through the
@@ -308,8 +325,10 @@ shape (`dp_ms`, phase 23(c); null for a kernel off the DP path), its
 launches in phase 24(d)'s CLI run on the packed corpus (`feed_launches`),
 a rank's launches in phase 26(a)'s ring step (`ring_dp_launches`), the
 launches of phase 26(b)'s CP steps (`cp_launches`: none, the path is
-plain), of phase 27's three CLI runs (`a11_launches`) and of phase 28's
-TP steps (`tp_launches`); and, last, one JSON object naming the device.
+plain), of phase 27's three CLI runs (`a11_launches`), of phase 28's
+TP steps (`tp_launches`) and those captured in phase 29's graphs of its
+eight cases (`multi_launches`: a replay launches them again, unseen by
+the counters); and, last, one JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -3795,7 +3814,8 @@ def dp_cards_main(n: int) -> None:
     process on the global batch of 64: in fp32 the losses of the first
     DP_CARDS_HELD steps within DP_CARDS_TOL (relative), the rest printed;
     in bf16 the trainer's audio-s/s of both (its log windows of 10 steps,
-    the first holding the warm-up)."""
+    the first holding the warm-up); then `make_multi_step` on the N cards
+    (`multi_cards_rank_main`)."""
     check(torch.cuda.is_available() and torch.cuda.device_count() >= n,
           f"--dp-cards {n} needs {n} CUDA GPUs")
     cards = subprocess.run(
@@ -3877,6 +3897,16 @@ def dp_cards_main(n: int) -> None:
           f"{[f'{e:.1e}' for e in errs]}, the first {DP_CARDS_HELD} held: "
           f"{held:.3e} (tol {DP_CARDS_TOL:.0e})", flush=True)
     check(held <= DP_CARDS_TOL, f"fp32 trajectory error {held}")
+    # make_multi_step across the N cards: the graph's steps against N
+    # eager DP steps on every rank, and a step's time in turns
+    port = free_port()
+    texts = run_ranks([[sys.executable, os.path.abspath(__file__),
+                        "--multi-rank", str(r), "--multi-port", str(port),
+                        "--multi-world", str(n)] for r in range(n)],
+                      timeout=600)
+    for line in texts[0].splitlines():
+        if line.startswith("multi-step"):
+            print(f"dp cards: {line}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4985,6 +5015,314 @@ def cp_cards_main(n: int) -> None:
 
 
 
+# --------------------------------------------------------------- phase 29
+MULTI_N = 8           # steps a replay in the held cases
+MULTI_TIMED = (8, 32)  # steps a replay in the timed cases
+MULTI_PAIRS = 10
+# (label, preset, --set overrides, on a one-rank NCCL mesh): the slice's
+# preset and its loss paths, augmentation, encoder remat, the transformer
+# with clip and warmup (flash16) and with dropout (xla), data parallelism,
+# and an fp32 preset (C16 under capture)
+MULTI_CASES = [
+    ("tpu_fast", "tpu_fast", [], False),
+    ("tpu_fast --augment", "tpu_fast", ["data.augment=true"], False),
+    ("tpu_fast all_steps", "tpu_fast", ["model.loss.negatives=all_steps"],
+     False),
+    ("tpu_fast encoder.remat", "tpu_fast", ["model.encoder.remat=true"],
+     False),
+    ("transformer_fast flash16", "transformer_fast",
+     ["model.ar.attn_impl=flash16"], False),
+    ("transformer_fast xla dropout 0.1", "transformer_fast",
+     ["model.ar.dropout=0.1"], False),
+    ("dp_global_negatives one NCCL rank", "dp_global_negatives", [], True),
+    ("baseline fp32", "baseline", [], False),
+]
+# where the graph's steps and the eager steps part (they have not on the
+# card so far), each case is held at phase 7's bounds: the loss relative,
+# every parameter and moment relative to max(1, max |eager|)
+MULTI_TOL = {"loss": STEP_TOL["loss"], "state": STEP_TOL["grad"]}
+
+
+def multi_stacks(cfg, n: int, calls: int, seed: int = 5) -> torch.Tensor:
+    """`calls` seeded int16 (n, B, S) stacks of batches on the card."""
+    B, S = cfg.data.batch_size, cfg.data.snippet_samples
+    x = np.random.default_rng(seed).standard_normal((calls, n, B, S)) * 3000
+    return torch.from_numpy(np.clip(x, -32768, 32767).astype(np.int16)
+                            ).cuda()
+
+
+def multi_state(model, opt) -> list:
+    return ([(f"param {k}", p) for k, p in model.named_parameters()]
+            + [(f"mu {k}", v) for k, v in opt.mu.items()]
+            + [(f"nu {k}", v) for k, v in opt.nu.items()])
+
+
+def multi_compare(label: str, call: int, multi, loss, eager_model,
+                  eager_opt, eager_loss) -> bool:
+    """The graph's model, moments, count and loss against the eager
+    steps': bit-equal, or held at MULTI_TOL with the tensors that part
+    named."""
+    got = multi_state(multi.model, multi.opt)
+    want = multi_state(eager_model, eager_opt)
+    differ = [(k, ((a.double() - b.double()).abs().max()
+                   / max(1.0, b.abs().max().item())).item())
+              for (k, a), (_, b) in zip(got, want) if not torch.equal(a, b)]
+    check(multi.opt.count == eager_opt.count,
+          f"multi-step ({label}): count {multi.opt.count} against "
+          f"{eager_opt.count}")
+    loss_err = abs(loss.item() - eager_loss.item()) / abs(eager_loss.item())
+    equal = not differ and torch.equal(loss, eager_loss)
+    worst = max((e for _, e in differ), default=0.0)
+    print(f"multi-step ({label}), call {call}: loss {loss.item():.6f} vs "
+          f"eager {eager_loss.item():.6f}; count {multi.opt.count}; "
+          f"{len(got)} tensors (parameters, mu, nu) "
+          + ("bit-equal" if equal else
+             f"NOT bit-equal: loss {loss_err:.3e}, {len(differ)} differ, "
+             f"worst {worst:.3e} (tolerances {MULTI_TOL}); first "
+             f"{differ[:6]}"), flush=True)
+    if not equal:
+        check(loss_err <= MULTI_TOL["loss"] and worst <= MULTI_TOL["state"],
+              f"multi-step ({label}) against eager steps: loss "
+              f"{loss_err}, state {worst}")
+    return equal
+
+
+def multi_rows(cfg, stacks: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of global stacks (..., B, S)."""
+    if mesh is None:
+        return stacks
+    return stacks[..., mesh.rows(cfg.data.batch_size), :].contiguous()
+
+
+def multi_held(card: str, label: str, cfg, mesh=None) -> dict:
+    """Phase 29 on one case: from one state and two seeded stacks of
+    MULTI_N batches, two calls of `make_multi_step`'s multi (the first
+    warms up, captures and replays, the second replays on the next stack
+    with the re-seeded generators and the next rows of the scalar table)
+    against MULTI_N eager `train_step` calls each, from a twin of the
+    state. Returns the launches captured in the graph, which must be the
+    eager steps' own."""
+    ma, mb = init_state(cfg, "cuda"), init_state(cfg, "cuda")
+    multi, _ = train_step_module.make_multi_step(cfg, ma, MULTI_N, mesh)
+    eager = make_step_fns(cfg, mb, mesh)
+    stacks = multi_rows(cfg, multi_stacks(cfg, MULTI_N, 2), mesh)
+    multi.warm_up(stacks[0])
+    zero_counts()
+    capture_ms, peak = timed_capture(multi, stacks[0])
+    in_graph = counts_now()
+    equal = []
+    for call, stack in enumerate(stacks, 1):
+        loss = multi(stack)
+        zero_counts()
+        for j in range(MULTI_N):
+            metrics = eager.train_step(stack[j])
+        torch.cuda.synchronize()
+        eager_counts = counts_now()
+        check(in_graph == eager_counts,
+              f"multi-step ({label}): the graph holds {in_graph}, the eager "
+              f"steps launched {eager_counts}")
+        equal.append(multi_compare(label, call, multi, loss, mb,
+                                   eager.optimizer, metrics["loss"]))
+    try:
+        multi(stacks[0, :, :1])
+        check(False, f"multi-step ({label}): another stack shape replayed")
+    except ValueError:
+        pass
+    launched = {k: v for k, v in in_graph.items() if v}
+    print(f"multi-step ({label}) on {card}: {MULTI_N} steps captured in "
+          f"{capture_ms:.1f} ms (host clock), peak {peak:.1f} MiB allocated "
+          f"during the capture, the graph's pool {pool_mib(multi.graph)}; "
+          f"launches in the graph {launched}; both calls bit-equal: "
+          f"{all(equal)}", flush=True)
+    multi.graph.reset()
+    return in_graph
+
+
+def timed_capture(multi, stack) -> tuple:
+    """(ms, MiB): the host time of `multi.capture(stack)` with a sync each
+    side, and the most memory allocated during it beyond what was before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    multi.capture(stack)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3,
+            (torch.cuda.max_memory_allocated() - allocated) / 2**20)
+
+
+def pool_mib(graph) -> str:
+    """The segments of `graph`'s private memory pool (the caching
+    allocator's snapshot), reserved and allocated."""
+    pool = tuple(graph.pool())
+    segments = [s for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", ())) == pool]
+    if not segments:
+        return "not measured (no segment of its pool in the snapshot)"
+    reserved, allocated = (sum(s[k] for s in segments) / 2**20
+                           for k in ("total_size", "allocated_size"))
+    return (f"{reserved:.1f} MiB reserved, {allocated:.1f} MiB allocated "
+            f"after the capture")
+
+
+def device_share(fn) -> tuple:
+    """(wall, busy, busy without NCCL's kernels) in ms of one call of fn
+    under torch.profiler: busy is the union of the device's kernel
+    intervals (a kernel on NCCL's stream overlaps the compute stream's, and
+    waits inside for the other ranks), wall the host clock with a sync
+    each side."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def union(intervals) -> float:
+        total, reached = 0.0, -math.inf
+        for start, end in sorted(intervals):
+            if end > reached:
+                total += end - max(start, reached)
+                reached = end
+        return total / 1e3
+    return (wall, union((a, b) for _, a, b in spans),
+            union((a, b) for name, a, b in spans
+                  if "nccl" not in name.lower()))
+
+
+def multi_timed(card: str, label: str, cfg, n: int, mesh=None) -> dict:
+    """Per-step ms of an n-step replay against n eager steps of the same
+    model on one stack, in MULTI_PAIRS alternating pairs (host clock, a
+    sync each side), the capture's ms and memory, and the device's busy
+    share over one replay and over the n eager steps (torch.profiler)."""
+    model = init_state(cfg, "cuda")
+    multi, steps = train_step_module.make_multi_step(cfg, model, n, mesh)
+    stack = multi_rows(cfg, multi_stacks(cfg, n, 1, seed=6)[0], mesh)
+    multi.warm_up(stack)
+    capture_ms, peak = timed_capture(multi, stack)
+    pool = pool_mib(multi.graph)
+
+    def replay():
+        multi(stack)
+
+    def eager():
+        for j in range(n):
+            steps.train_step(stack[j])
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+    for _ in range(2):
+        replay()
+        eager()
+    runs = {"graph": [], "eager": []}
+    for k in range(MULTI_PAIRS):
+        order = ("graph", "eager") if k % 2 == 0 else ("eager", "graph")
+        for name in order:
+            runs[name].append(timed(replay if name == "graph" else eager))
+    busy = {name: device_share(fn) for name, fn in
+            (("graph", replay), ("eager", eager))}
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    wins = sum(g < e for g, e in zip(runs["graph"], runs["eager"]))
+
+    def share(name):
+        wall, kernels, compute = busy[name]
+        if kernels <= 0:
+            return "not measured (the profiler saw no kernel)"
+        return (f"wall {wall:.2f} ms, kernels busy {kernels:.2f} ms, idle "
+                f"{1 - kernels / wall:.3f} ({1 - compute / wall:.3f} without "
+                f"NCCL's kernels)")
+    print(f"multi-step timed ({label}, N = {n}) on {card}: a step "
+          f"{med['graph']:.3f} ms in the graph (range "
+          f"{min(runs['graph']):.3f}-{max(runs['graph']):.3f}) against "
+          f"{med['eager']:.3f} eager ({min(runs['eager']):.3f}-"
+          f"{max(runs['eager']):.3f}), medians of {MULTI_PAIRS} alternating "
+          f"pairs, the graph faster in {wins}; capture {capture_ms:.1f} ms, "
+          f"peak {peak:.1f} MiB allocated during it, the graph's pool "
+          f"{pool}; one replay: "
+          f"{share('graph')}; {n} eager steps: {share('eager')}",
+          flush=True)
+    multi.graph.reset()
+    return {"graph_ms": med["graph"], "eager_ms": med["eager"]}
+
+
+def phase29_multi_step(card: str) -> dict:
+    """Phase 29: `make_multi_step` on the card. Returns each kernel's
+    launches captured in the held cases' graphs."""
+    t0 = time.perf_counter()
+    total = {k: 0 for k in COUNTED}
+    for label, preset, sets, nccl in MULTI_CASES:
+        cfg = apply_overrides(presets.by_name(preset), sets)
+        mesh = None
+        if nccl:
+            mesh = multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                                        device="cuda")
+        try:
+            got = multi_held(card, label, cfg, mesh)
+        finally:
+            if nccl:
+                multihost.shutdown()
+        for k, v in got.items():
+            total[k] += v
+    for preset, sets in (("tpu_fast", []),
+                         ("transformer_fast",
+                          ["model.ar.attn_impl=flash16"])):
+        cfg = apply_overrides(presets.by_name(preset), sets)
+        for n in MULTI_TIMED:
+            multi_timed(card, " ".join([preset, *sets]), cfg, n)
+    print(f"multi-step: phase 29 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return total
+
+
+def multi_cards_rank_main(argv) -> None:
+    """One rank of `--dp-cards`' multi-step: `chip_smoke.py --multi-rank R
+    --multi-port P --multi-world N`. dp_global_negatives (bf16, a global
+    batch of 64) on N NCCL cards: phase 29's held case, each rank on its
+    rows, and the timed case at N = 8 and 32; every rank checks, rank 0's
+    lines are printed by `dp_cards_main`."""
+    args = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(args["--multi-rank"]), int(args["--multi-world"])
+    mesh = multihost.initialize(f"127.0.0.1:{args['--multi-port']}", world,
+                                rank, device="cuda", timeout=300)
+    try:
+        card = torch.cuda.get_device_name(mesh.device)
+        cfg = presets.dp_global_negatives()
+        label = f"dp_global_negatives, {world} NCCL cards, rank {rank}"
+        multi_held(card, label, cfg, mesh)
+        for n in MULTI_TIMED:
+            multi_timed(card, label, cfg, n, mesh)
+    finally:
+        multihost.shutdown()
+
+
+def multi_step_main() -> None:
+    """`chip_smoke.py --multi-step`: phases 1, 2 and 29 alone."""
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false; "
+          "this script needs one CUDA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"gpu: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    launches = phase29_multi_step(card)
+    print(json.dumps({"multi_launches": launches}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     # 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false; "
@@ -5138,6 +5476,10 @@ def main() -> None:
     # transformer's heads (xla and flash16) in fp32
     tp_launches = phase28_tp(card)
 
+    # 29. make_multi_step: N steps in one CUDA-graph replay against N eager
+    # steps, on the slice's presets, loss paths and features
+    multi_launches = phase29_multi_step(card)
+
     sources = {
         "gru_scan": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:57"),
         "gru_scan_backward": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:82"),
@@ -5174,7 +5516,8 @@ def main() -> None:
         "feed_launches": feed_launches[name],
         "ring_dp_launches": ring_dp_launches[name],
         "cp_launches": cp_launches[name], "a11_launches": a11_launches[name],
-        "tp_launches": tp_launches[name]}
+        "tp_launches": tp_launches[name],
+        "multi_launches": multi_launches[name]}
         for name, (src, tpu) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5198,5 +5541,9 @@ if __name__ == "__main__":
         tp_cards_main(int(sys.argv[sys.argv.index("--tp-cards") + 1]))
     elif "--hosts" in sys.argv:
         hosts_main(int(sys.argv[sys.argv.index("--hosts") + 1]))
+    elif "--multi-rank" in sys.argv:
+        multi_cards_rank_main(sys.argv[1:])
+    elif "--multi-step" in sys.argv:
+        multi_step_main()
     else:
         main()

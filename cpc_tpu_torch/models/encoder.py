@@ -17,7 +17,9 @@ over time and the group's channels, eps 1e-6) | batch (`_BatchStatsNorm`:
 the live batch's statistics over (B, T) in fp32, eps 1e-5, no running
 averages, so training and eval compute the same); activation relu | gelu
 (tanh form, as flax) | tanh; `remat`, which recomputes each (conv, norm,
-activation) block in the backward through `torch.utils.checkpoint`; and
+activation) block in the backward through `torch.utils.checkpoint` (torch's
+RNG state unsaved: a block draws nothing, and a CUDA graph's capture
+cannot read that state); and
 `use_pallas`, which sends the whole pyramid to the hand-written CUDA
 kernels of `ops/conv_cuda.py` (SAME padding, no norm, relu only; the
 parameters are the same on both routes).
@@ -277,7 +279,8 @@ class ConvEncoder(nn.Module):
         h = x[:, None, :]  # (B, 1, T)
         for i in range(len(cfg.kernels)):
             if cfg.remat and torch.is_grad_enabled():
-                h = checkpoint(layer, h, i, use_reentrant=False)
+                h = checkpoint(layer, h, i, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 h = layer(h, i)
         return h.transpose(1, 2)  # (B, T', C)
@@ -365,7 +368,8 @@ class ScalogramEncoder(nn.Module):
         h = s[:, None].to(self.dtype)  # (B, 1, T, F)
         for i in range(len(self.geometry)):
             if cfg.remat and torch.is_grad_enabled():
-                h = checkpoint(layer, h, i, use_reentrant=False)
+                h = checkpoint(layer, h, i, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 h = layer(h, i)
         B, C, T, n_freq = h.shape

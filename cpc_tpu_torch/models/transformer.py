@@ -41,7 +41,9 @@ cast to the compute `dtype` at use.
 Dropout (`ar.dropout > 0`, 'xla' only) is live when `train=True` and draws
 from an explicit `torch.Generator` on the tensors' device; its draws are
 not JAX's. `ar.remat` recomputes each block in the backward
-(`torch.utils.checkpoint`), replaying the block's dropout draws.
+(`torch.utils.checkpoint`), replaying the block's dropout draws from its
+own generator's state; torch's RNG state is not saved (nothing here draws
+from it), so a CUDA graph can capture a remat block without dropout.
 
 `decode_step` is the incremental KV-cache path in plain tensor code: one
 new latent per stream, the cache an explicit carry (`decode_carry`) with a
@@ -89,7 +91,7 @@ class _LayerNorm(nn.LayerNorm):
 
 def _sqrt_in(dtype, dh: int) -> float:
     """sqrt(Dh) rounded to the compute dtype, the divisor flax MHA uses."""
-    return torch.tensor(math.sqrt(dh), dtype=dtype).item()
+    return float(torch.tensor(math.sqrt(dh), dtype=dtype))
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -342,7 +344,7 @@ class CausalTransformer(nn.Module):
                 # where the forward found it, so the draws are the same
                 state = generator.get_state() if live else None
                 x = checkpoint(_run_block, blk, x, train, generator, state,
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
             else:
                 x = blk(x, train, generator)
         return self.final_norm(x)

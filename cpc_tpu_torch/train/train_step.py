@@ -8,7 +8,9 @@ place, where the JAX step returns new ones.
 
 `make_optimizer` is optax's chain written out in tensor code, with optax's
 numerics (tests/test_torch_port_optim.py holds it against optax):
-  * [clip_by_global_norm(c)]: g unchanged when ||g|| < c, else (g / ||g||) c;
+  * [clip_by_global_norm(c)]: g unchanged when ||g|| < c, else (g / ||g||) c,
+    a select on the device (`torch.where`), so the host never waits for
+    the norm;
   * adam: mu, nu moments, bias correction 1 - b^count (in fp32) with count
     starting at 1, update mu_hat / (sqrt(nu_hat) + eps), eps outside the
     square root;
@@ -17,6 +19,15 @@ numerics (tests/test_torch_port_optim.py holds it against optax):
     warmup the first update uses lr 0: optax's `linear_schedule` warmup for
     'constant', `warmup_cosine_decay_schedule` with decay_steps =
     max(num_steps, warmup + 1) for 'cosine'.
+The count stays a host int (it is checkpointed); the host computes each
+update's lr and bias corrections from it (`Optimizer.scalars`) and sends
+them to the device as a row of fp32 tensors, which the update divides and
+multiplies by: the eager step and a CUDA graph of it compute the same bits.
+
+`make_multi_step` chains N steps in one call (JAX's lax.scan over staged
+batches): on a card one CUDA-graph replay of the N steps, their optimizer
+scalars a device table of N rows and their generators re-seeded before
+each replay; on the CPU the same steps one after another.
 
 Transformer dropout (`ar.dropout > 0`) draws from a `torch.Generator` made
 anew for every microbatch of every step and seeded from `train.seed` and
@@ -56,9 +67,11 @@ proper is `parallel/tp.py::make_tp_train_step`.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, NamedTuple, Tuple
+from typing import (Callable, Dict, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import torch
+import torch.distributed as dist
 
 from cpc_tpu_torch.config import CPCConfig, TrainConfig
 from cpc_tpu_torch.data.loader import device_prepare
@@ -66,6 +79,7 @@ from cpc_tpu_torch.models.cpc import CPCModel
 from cpc_tpu_torch.ops.dsp import augment_waveform
 from cpc_tpu_torch.ops.infonce import infonce_loss_and_metrics
 from cpc_tpu_torch.ops.infonce_fused import fused_heads_infonce
+from cpc_tpu_torch.ops.ring_util import ThreadGroup
 from cpc_tpu_torch.parallel.dp import average, dp_eval_step, dp_train_step
 from cpc_tpu_torch.parallel.mesh import axis_sizes, mesh_size
 from cpc_tpu_torch.utils.precision import exact_for
@@ -109,10 +123,15 @@ class Optimizer:
     """[clip_by_global_norm] -> Adam or AdamW -> -lr(count), over the fp32
     parameters `params` (name -> tensor), updated in place by `step`.
     `norm(grads)` is the clip's global norm: `global_norm` of the values
-    (`parallel/tp.py` sets its own over shards)."""
+    (`parallel/tp.py` sets its own over shards). `step` reads nothing back
+    from the device: the clip is a select there, and the per-step scalars
+    are a row of `scalars`, so a CUDA graph can hold it
+    (`make_multi_step`)."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], t: TrainConfig):
         self.params = dict(params)
+        self.device = next(iter(self.params.values())).device \
+            if self.params else torch.device("cpu")
         self.norm = lambda grads: global_norm(grads.values())
         self.schedule = make_schedule(t)
         self.b1, self.b2, self.eps = t.beta1, t.beta2, 1e-8
@@ -122,18 +141,37 @@ class Optimizer:
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
 
+    def scalars(self, count: int, n: int = 1) -> torch.Tensor:
+        """(n, 3) fp32 on the parameters' device: row j holds the update at
+        count + j's lr(count + j), 1 - b1**(count + j + 1) and
+        1 - b2**(count + j + 1), computed on the host by optax's formulas
+        (the bias corrections in fp32: b2 = 0.999 rounds to 0.99900001,
+        which moves 1 - b2 by 1.3e-5 relative). On a card the table goes up
+        from pinned memory without waiting for the device."""
+        rows = [[self.schedule(c)]
+                + [float(1.0 - torch.tensor(b, dtype=torch.float32)
+                         ** (c + 1)) for b in (self.b1, self.b2)]
+                for c in range(count, count + n)]
+        table = torch.tensor(rows, dtype=torch.float32)
+        if self.device.type == "cuda":
+            return table.pin_memory().to(self.device, non_blocking=True)
+        return table.to(self.device)
+
     @torch.no_grad()
-    def step(self, grads: Mapping[str, torch.Tensor]) -> None:
-        if self.clip > 0:
+    def step(self, grads: Mapping[str, torch.Tensor],
+             scalars: Optional[torch.Tensor] = None) -> None:
+        """One update. `scalars` is its row of `scalars()` on the device
+        (a CUDA graph's table); by default the row of `count`. Every
+        division is by a device tensor, so the eager and the captured step
+        compute the same bits (a CUDA tensor divided by a Python scalar is
+        multiplied by its reciprocal instead)."""
+        if scalars is None:
+            scalars = self.scalars(self.count)[0]
+        lr, bc1, bc2 = scalars.unbind()
+        if self.clip > 0:  # optax: select(norm < clip, g, (g / norm) clip)
             norm = self.norm(grads)
-            if not norm < self.clip:
-                grads = {k: g / norm * self.clip for k, g in grads.items()}
-        lr = self.schedule(self.count)
-        count = self.count + 1
-        # 1 - b**count in fp32, as optax computes it (b2 = 0.999 rounds to
-        # 0.99900001 in fp32, which moves 1 - b2 by 1.3e-5 relative)
-        bc1, bc2 = (float(1.0 - torch.tensor(b, dtype=torch.float32) ** count)
-                    for b in (self.b1, self.b2))
+            grads = {k: torch.where(norm < self.clip, g, g / norm * self.clip)
+                     for k, g in grads.items()}
         for k, p in self.params.items():
             g = grads[k]
             mu = self.mu[k].mul_(self.b1).add_((1.0 - self.b1) * g)
@@ -141,8 +179,8 @@ class Optimizer:
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.weight_decay > 0:
                 u = u + self.weight_decay * p
-            p.add_(-lr * u)
-        self.count = count
+            p.sub_(lr * u)
+        self.count += 1
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
@@ -225,25 +263,44 @@ def init_state(cfg: CPCConfig, device=None) -> CPCModel:
                     generator=torch.Generator().manual_seed(cfg.train.seed))
 
 
-def dropout_generator(seed: int, count: int, microbatch: int, device,
-                      rank: int = 0) -> torch.Generator:
-    """The dropout draws of microbatch `microbatch` of optimizer step
-    `count` on rank `rank`: a function of (train.seed, count, microbatch,
-    rank) alone. Rank 0 draws what a single-device run draws."""
+def dropout_seed(seed: int, count: int, microbatch: int,
+                 rank: int = 0) -> int:
+    """The seed of the dropout draws of microbatch `microbatch` of
+    optimizer step `count` on rank `rank`: a function of (train.seed,
+    count, microbatch, rank) alone. Rank 0 draws what a single-device run
+    draws."""
     mixed = (seed * 0x9E3779B97F4A7C15 + count * 1_000_003 + microbatch
              + rank * 0xD1B54A32D192ED03)
-    return torch.Generator(device=device).manual_seed(mixed % (1 << 63))
+    return mixed % (1 << 63)
+
+
+def augment_seed(seed: int, count: int, microbatch: int,
+                 rank: int = 0) -> int:
+    """The seed of the augmentation draws, as `dropout_seed` by another
+    mix, so the two streams differ."""
+    mixed = ((seed + 0x5EED) * 0xBF58476D1CE4E5B9 + count * 2_000_029
+             + microbatch * 7_919 + rank * 0x94D049BB133111EB)
+    return mixed % (1 << 63)
+
+
+def dropout_generator(seed: int, count: int, microbatch: int, device,
+                      rank: int = 0) -> torch.Generator:
+    """A generator on `device` seeded by `dropout_seed`."""
+    return torch.Generator(device=device).manual_seed(
+        dropout_seed(seed, count, microbatch, rank))
 
 
 def augment_generator(seed: int, count: int, microbatch: int, device,
                       rank: int = 0) -> torch.Generator:
-    """The augmentation draws of microbatch `microbatch` of optimizer step
-    `count` on rank `rank`: a function of (train.seed, count, microbatch,
-    rank) alone, by another mix than `dropout_generator`'s, so the two
-    streams differ."""
-    mixed = ((seed + 0x5EED) * 0xBF58476D1CE4E5B9 + count * 2_000_029
-             + microbatch * 7_919 + rank * 0x94D049BB133111EB)
-    return torch.Generator(device=device).manual_seed(mixed % (1 << 63))
+    """A generator on `device` seeded by `augment_seed`."""
+    return torch.Generator(device=device).manual_seed(
+        augment_seed(seed, count, microbatch, rank))
+
+
+def uses_dropout(cfg: CPCConfig) -> bool:
+    """Whether the training step draws dropout masks (a transformer gar
+    with ar.dropout > 0)."""
+    return cfg.model.ar.kind == "transformer" and cfg.model.ar.dropout > 0
 
 
 def _nan_raise(what: str, step: int, where: str) -> None:
@@ -282,8 +339,9 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
     fuse_heads = resolve_fuse_heads(cfg, mesh)
     accum = cfg.train.accum_steps
     params = dict(model.named_parameters())
-    dropout = cfg.model.ar.kind == "transformer" and cfg.model.ar.dropout > 0
+    dropout = uses_dropout(cfg)
     d = cfg.data
+    seed = cfg.train.seed
 
     def loss_fn(model: CPCModel, batch: torch.Tensor, generator=None,
                 mesh=None, augment=None):
@@ -312,16 +370,24 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
             use_pallas=loss_cfg.use_pallas,
             pallas_bf16=loss_cfg.pallas_bf16, ring=loss_cfg.ring)
 
-    def train_step(batch: torch.Tensor, mesh=None) -> Dict[str, torch.Tensor]:
+    def train_step(batch: torch.Tensor, mesh=None, *,
+                   scalars: Optional[torch.Tensor] = None,
+                   generators=None) -> Dict[str, torch.Tensor]:
         """One optimizer step. With accum_steps > 1 the batch splits into
         microbatches, each its own negative pool; grads and metrics are
         averaged, and then over the ranks of `mesh`. Metrics stay on the
         device (reading them syncs); p.grad keeps this rank's sum of its
-        microbatches' gradients. An fp32 model steps with TF32 off."""
+        microbatches' gradients. An fp32 model steps with TF32 off.
+        `scalars` (the optimizer's row of `Optimizer.scalars`) and
+        `generators` (a (dropout, augment) pair a microbatch, seeded as
+        `dropout_generator` / `augment_generator` seed theirs) are what a
+        CUDA graph of the step takes from outside (`make_multi_step`); by
+        default both come from the optimizer's count."""
         with exact_for(model.dtype):
-            return _train_step(batch, mesh)
+            return _train_step(batch, mesh, scalars, generators)
 
-    def _train_step(batch: torch.Tensor, mesh) -> Dict[str, torch.Tensor]:
+    def _train_step(batch: torch.Tensor, mesh, scalars,
+                    generators) -> Dict[str, torch.Tensor]:
         B = batch.shape[0]
         if B % accum:
             raise ValueError(
@@ -333,10 +399,13 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
         per_mb = []
         mbs = batch.reshape(accum, B // accum, *batch.shape[1:])
         for i, mb in enumerate(mbs):
-            gen = dropout_generator(cfg.train.seed, opt.count, i,
-                                    batch.device, rank) if dropout else None
-            aug = augment_generator(cfg.train.seed, opt.count, i,
-                                    batch.device, rank) if d.augment else None
+            if generators is not None:
+                gen, aug = generators[i]
+            else:
+                gen = dropout_generator(seed, opt.count, i, batch.device,
+                                        rank) if dropout else None
+                aug = augment_generator(seed, opt.count, i, batch.device,
+                                        rank) if d.augment else None
             loss, metrics = loss_fn(model, mb, gen, mesh, aug)
             if nan_debug:
                 _checked_backward(loss, opt.count + 1)
@@ -353,7 +422,12 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
         metrics["grad_norm"] = global_norm(grads.values())
         if nan_debug and not torch.isfinite(metrics["grad_norm"]):
             _nan_raise("gradient", opt.count + 1, "backward")
-        opt.step(grads)
+        # step(grads), the call that wrappers of the optimizer's step see,
+        # unless a graph passes its table's row
+        if scalars is None:
+            opt.step(grads)
+        else:
+            opt.step(grads, scalars)
         return metrics
 
     @torch.no_grad()
@@ -388,3 +462,220 @@ def _averaged(grads: Dict[str, torch.Tensor], metrics: Dict[str, torch.Tensor],
     means = average(list(grads.values()) + list(metrics.values()), mesh)
     out = dict(zip(names, means))
     return ({k: out[k] for k in grads}, {k: out[k] for k in metrics})
+
+
+#: eager steps a MultiStep runs on a side stream before its capture
+WARMUP_STEPS = 2
+
+
+def make_multi_step(cfg: CPCConfig, model: CPCModel, n_steps: int,
+                    mesh=None) -> Tuple["MultiStep", StepFns]:
+    """(multi, steps): `n_steps` training steps in one call, and the step
+    functions they chain (`make_step_fns`). `multi(batches)` takes an int16
+    (n_steps, B, S) stack on the model's device, updates the model and the
+    optimizer in place as n_steps calls of `steps.train_step` would, and
+    returns the last step's loss. On a card the steps run as one CUDA-graph
+    replay (`MultiStep`); on the CPU the same steps run one after another.
+
+    Port of `cpc_tpu/train/train_step.py::make_multi_step`, which chains the
+    steps inside one jit with `lax.scan`. The port's steps seed their
+    dropout and augmentation draws from train.seed and the optimizer's
+    count, so `multi` takes no rng. Raises ValueError where JAX raises
+    (`data.device_corpus`) and where a capture cannot hold the step:
+    train.parallel 'cp' / 'dpcp', tensor parallelism or a 'model' axis, a
+    mesh of thread ranks or of gloo processes (only NCCL's collectives are
+    captured), the transformer's remat with dropout (its replay reads the
+    generator's state on the host) and nan-debug."""
+    if cfg.data.device_corpus:
+        raise ValueError(
+            "make_multi_step takes pre-staged BATCHES; data.device_corpus "
+            "steps take (corpus, idx) instead — stage batches device-side "
+            "yourself (they already avoid per-step transfers) or drop the "
+            "flag")
+    t = cfg.train
+    if t.parallel != "dp":
+        raise ValueError(f"make_multi_step runs train.parallel 'dp', not "
+                         f"{t.parallel!r}")
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    world = 1 if mesh is None else mesh.size
+    if getattr(model, "tp_shards", None) is not None or \
+            axis_sizes(t.mesh_shape, t.mesh_axes, world)["model"] > 1 or \
+            (mesh is not None and mesh.model > 1):
+        raise ValueError("make_multi_step does not capture tensor "
+                         "parallelism or a 'model' axis")
+    if mesh is not None:
+        if isinstance(mesh.group, ThreadGroup):
+            raise ValueError("make_multi_step cannot capture the "
+                             "collectives of thread ranks")
+        backend = dist.get_backend(mesh.group)
+        if backend != "nccl":
+            raise ValueError(f"make_multi_step captures NCCL's collectives, "
+                             f"not {backend!r}'s")
+    if uses_dropout(cfg) and cfg.model.ar.remat:
+        raise ValueError("make_multi_step cannot capture ar.remat with "
+                         "dropout: the recompute restores its generator's "
+                         "state from the host")
+    _refuse_nan_debug()
+    steps = make_step_fns(cfg, model, mesh)
+    return MultiStep(cfg, model, n_steps, steps, mesh), steps
+
+
+def _refuse_nan_debug() -> None:
+    if torch.is_anomaly_enabled():
+        raise ValueError("make_multi_step does not run under nan-debug "
+                         "(autograd's anomaly mode checks values on the "
+                         "host)")
+
+
+class MultiStep:
+    """`n_steps` training steps of `steps.train_step` as one call.
+
+    Each call writes the steps' optimizer scalars into a device table
+    (`Optimizer.scalars`, one row a step) and re-seeds a generator pair a
+    step and microbatch with the seeds the eager step would draw from
+    (`dropout_seed`, `augment_seed` of count + j), then runs the steps with
+    them. On a card the first call runs WARMUP_STEPS eager steps on a side
+    stream (`warm_up`: they build the kernels' library, cuBLAS's and NCCL's
+    state; the model and the optimizer are put back), then captures the
+    n_steps steps, unrolled, into one `torch.cuda.CUDAGraph` over a static
+    batch buffer (`capture`), and every call replays it: the graph holds
+    the kernels, the collectives of an NCCL mesh and the optimizer, and
+    its generators are registered with it, so a replay draws from the
+    seeds of that call. A capture or a replay that fails raises. The count
+    advances by n_steps on the host. The parameters and moments are
+    captured by address: load a checkpoint in place (`load_state_dict`),
+    never by replacing the tensors."""
+
+    def __init__(self, cfg: CPCConfig, model: CPCModel, n_steps: int,
+                 steps: StepFns, mesh=None):
+        self.n = n_steps
+        self.steps = steps
+        self.opt = steps.optimizer
+        self.model = model
+        self.device = self.opt.device
+        self.accum = cfg.train.accum_steps
+        self.seed = cfg.train.seed
+        self.rank = 0 if mesh is None else mesh.data_mesh().rank
+        self.shape = None  # the batch stack's, fixed by the first call
+        self.graph = None
+        self._static = self._table = self._loss = self._stream = None
+
+        def gen(on: bool):
+            return torch.Generator(device=self.device) if on else None
+        self.generators = [[(gen(uses_dropout(cfg)), gen(cfg.data.augment))
+                            for _ in range(self.accum)]
+                           for _ in range(n_steps)]
+
+    def __call__(self, batches: torch.Tensor) -> torch.Tensor:
+        self._check(batches)
+        count = self.opt.count
+        self._reseed(count)
+        table = self.opt.scalars(count, self.n)
+        if self.device.type != "cuda":
+            loss = self._steps(batches, table)
+        else:
+            if self.graph is None:
+                self.warm_up(batches)
+                self.capture(batches)
+            self._table.copy_(table)
+            self._static.copy_(batches)
+            self.graph.replay()
+            loss = self._loss.clone()
+        self.opt.count = count + self.n
+        return loss
+
+    def _check(self, batches: torch.Tensor) -> None:
+        _refuse_nan_debug()
+        if not isinstance(batches, torch.Tensor) or \
+                batches.dtype != torch.int16 or batches.dim() != 3 or \
+                batches.shape[0] != self.n:
+            raise ValueError(
+                f"multi takes an int16 ({self.n}, B, S) stack of batches, got "
+                f"{getattr(batches, 'dtype', type(batches))} "
+                f"{tuple(getattr(batches, 'shape', ()))}")
+        if batches.device != self.device:
+            raise ValueError(f"the batches are on {batches.device}, the "
+                             f"model on {self.device}")
+        if self.shape is None:
+            if batches.shape[1] % self.accum:
+                raise ValueError(f"batch {batches.shape[1]} is not divisible "
+                                 f"by accum_steps {self.accum}")
+            self.shape = batches.shape
+        elif batches.shape != self.shape:
+            raise ValueError(f"multi was captured for batch stacks of "
+                             f"{tuple(self.shape)}, got "
+                             f"{tuple(batches.shape)}")
+
+    def _reseed(self, count: int) -> None:
+        for j, pairs in enumerate(self.generators):
+            for i, (gen, aug) in enumerate(pairs):
+                if gen is not None:
+                    gen.manual_seed(dropout_seed(self.seed, count + j, i,
+                                                 self.rank))
+                if aug is not None:
+                    aug.manual_seed(augment_seed(self.seed, count + j, i,
+                                                 self.rank))
+
+    def _steps(self, batches: torch.Tensor,
+               table: torch.Tensor) -> torch.Tensor:
+        """The steps, one after another: run as they are on the CPU,
+        captured on a card."""
+        for j in range(self.n):
+            metrics = self.steps.train_step(batches[j], scalars=table[j],
+                                            generators=self.generators[j])
+        return metrics["loss"]
+
+    def _state(self):
+        return (list(self.model.parameters()) + list(self.opt.mu.values())
+                + list(self.opt.nu.values()))
+
+    @torch.no_grad()
+    def _restore(self, saved) -> None:
+        for t, v in zip(self._state(), saved):
+            t.copy_(v)
+
+    def warm_up(self, batches: torch.Tensor) -> None:
+        """WARMUP_STEPS eager steps on the capture's side stream; the
+        model, the moments and the count are put back as they were."""
+        self._check(batches)
+        saved = [t.detach().clone() for t in self._state()]
+        count = self.opt.count
+        current = torch.cuda.current_stream(self.device)
+        stream = self._side_stream()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            for j in range(WARMUP_STEPS):
+                self.steps.train_step(batches[j % self.n])
+            self._restore(saved)
+        current.wait_stream(stream)
+        self.opt.count = count
+
+    def capture(self, batches: torch.Tensor) -> None:
+        """Captures the n_steps steps over a static copy of `batches` and a
+        device table of scalars into `self.graph` (nothing runs)."""
+        self._check(batches)
+        self._static = batches.clone()
+        self._table = torch.zeros((self.n, 3), dtype=torch.float32,
+                                  device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        for pairs in self.generators:
+            for g in (g for pair in pairs for g in pair if g is not None):
+                graph.register_generator_state(g)
+        count = self.opt.count
+        current = torch.cuda.current_stream(self.device)
+        stream = self._side_stream()
+        stream.wait_stream(current)
+        # thread_local: other threads of the process (NCCL's watchdog, a
+        # batch feed) go on while this one captures
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self._loss = self._steps(self._static, self._table)
+        current.wait_stream(stream)
+        self.opt.count = count
+        self.graph = graph
+
+    def _side_stream(self) -> torch.cuda.Stream:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
