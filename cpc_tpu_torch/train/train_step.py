@@ -44,6 +44,14 @@ With `data.device_corpus` the steps take `(corpus, idx)`: the (N, S)
 int16 corpus on the device and this step's (B,) snippet indices, and
 gather the batch's rows there; the rest of the step is the same.
 
+The step's phases are host spans (`utils.profiling.span`): `step.gather`
+(a device corpus's rows), `step.forward` (the loss function: prepare,
+encoder, gar, heads and InfoNCE, a mesh's pool gather) and `step.backward`
+a microbatch, `step.average` under a mesh, and `step.optimizer` (grad_norm
+and `Optimizer.step`, which holds `step.scalars`, the host's table of
+scalars and its upload). They read the clock on the host alone and change
+nothing the step computes or launches.
+
 Under nan-debug (`utils.profiling.enable_nan_debug`, which turns on
 autograd's anomaly mode) the train step checks its loss after the forward
 and its gradients after the backward, and raises FloatingPointError at the
@@ -83,6 +91,7 @@ from cpc_tpu_torch.ops.ring_util import ThreadGroup
 from cpc_tpu_torch.parallel.dp import average, dp_eval_step, dp_train_step
 from cpc_tpu_torch.parallel.mesh import axis_sizes, mesh_size
 from cpc_tpu_torch.utils.precision import exact_for
+from cpc_tpu_torch.utils.profiling import span
 
 
 class StepFns(NamedTuple):
@@ -148,14 +157,15 @@ class Optimizer:
         (the bias corrections in fp32: b2 = 0.999 rounds to 0.99900001,
         which moves 1 - b2 by 1.3e-5 relative). On a card the table goes up
         from pinned memory without waiting for the device."""
-        rows = [[self.schedule(c)]
-                + [float(1.0 - torch.tensor(b, dtype=torch.float32)
-                         ** (c + 1)) for b in (self.b1, self.b2)]
-                for c in range(count, count + n)]
-        table = torch.tensor(rows, dtype=torch.float32)
-        if self.device.type == "cuda":
-            return table.pin_memory().to(self.device, non_blocking=True)
-        return table.to(self.device)
+        with span("step.scalars"):
+            rows = [[self.schedule(c)]
+                    + [float(1.0 - torch.tensor(b, dtype=torch.float32)
+                             ** (c + 1)) for b in (self.b1, self.b2)]
+                    for c in range(count, count + n)]
+            table = torch.tensor(rows, dtype=torch.float32)
+            if self.device.type == "cuda":
+                return table.pin_memory().to(self.device, non_blocking=True)
+            return table.to(self.device)
 
     @torch.no_grad()
     def step(self, grads: Mapping[str, torch.Tensor],
@@ -406,11 +416,13 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
                                         rank) if dropout else None
                 aug = augment_generator(seed, opt.count, i, batch.device,
                                         rank) if d.augment else None
-            loss, metrics = loss_fn(model, mb, gen, mesh, aug)
-            if nan_debug:
-                _checked_backward(loss, opt.count + 1)
-            else:
-                loss.backward()
+            with span("step.forward"):
+                loss, metrics = loss_fn(model, mb, gen, mesh, aug)
+            with span("step.backward"):
+                if nan_debug:
+                    _checked_backward(loss, opt.count + 1)
+                else:
+                    loss.backward()
             per_mb.append({k: v.detach() for k, v in metrics.items()})
         grads = {k: p.grad for k, p in params.items()}
         if accum > 1:
@@ -418,16 +430,18 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
         metrics = {k: torch.stack([m[k] for m in per_mb]).mean(0)
                    for k in per_mb[0]}
         if mesh is not None:
-            grads, metrics = _averaged(grads, metrics, mesh)
-        metrics["grad_norm"] = global_norm(grads.values())
-        if nan_debug and not torch.isfinite(metrics["grad_norm"]):
-            _nan_raise("gradient", opt.count + 1, "backward")
-        # step(grads), the call that wrappers of the optimizer's step see,
-        # unless a graph passes its table's row
-        if scalars is None:
-            opt.step(grads)
-        else:
-            opt.step(grads, scalars)
+            with span("step.average"):
+                grads, metrics = _averaged(grads, metrics, mesh)
+        with span("step.optimizer"):
+            metrics["grad_norm"] = global_norm(grads.values())
+            if nan_debug and not torch.isfinite(metrics["grad_norm"]):
+                _nan_raise("gradient", opt.count + 1, "backward")
+            # step(grads), the call that wrappers of the optimizer's step
+            # see, unless a graph passes its table's row
+            if scalars is None:
+                opt.step(grads)
+            else:
+                opt.step(grads, scalars)
         return metrics
 
     @torch.no_grad()
@@ -442,7 +456,9 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
         batch_train, batch_eval = train_step, eval_step
 
         def train_step(corpus: torch.Tensor, idx: torch.Tensor, mesh=None):
-            return batch_train(corpus.index_select(0, idx), mesh)
+            with span("step.gather"):
+                rows = corpus.index_select(0, idx)
+            return batch_train(rows, mesh)
 
         def eval_step(corpus: torch.Tensor, idx: torch.Tensor, mesh=None):
             return batch_eval(corpus.index_select(0, idx), mesh)

@@ -35,6 +35,11 @@ validation corpus reuses the training corpus when both index the same
 snippets. Metrics go to metrics.jsonl and to TensorBoard under
 `<workdir>/tb` (`train.metrics`). Supervision (`train.supervisor`),
 profiling and nan-debug (`utils.profiling`) wrap `train()` from the CLI.
+The loop's phases are host spans (`utils.profiling.span`): `trainer.feed`
+(the Batcher's next), `trainer.stage`, `trainer.step` (the train_step
+call), `trainer.log` (the sync, the fetch and the write every log_every
+steps), `trainer.validate`, `trainer.checkpoint` and `trainer.agree`
+(`multihost.any_true`).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from cpc_tpu_torch.train.checkpoint import CheckpointManager
 from cpc_tpu_torch.train.metrics import MetricWriter
 from cpc_tpu_torch.train.train_step import (dp_mesh, init_state,
                                              make_step_fns)
+from cpc_tpu_torch.utils.profiling import span
 
 
 class Trainer:
@@ -207,34 +213,44 @@ class Trainer:
         self._sync()
         t_log, since_log = time.perf_counter(), 0
         while self.step < total:
-            _, _, host_batch = next(it)
-            staged = self._stage(host_batch)
-            metrics = (self.steps.train_step(staged) if self._corpus is None
-                       else self.steps.train_step(self._corpus, staged))
+            with span("trainer.feed"):
+                _, _, host_batch = next(it)
+            with span("trainer.stage"):
+                staged = self._stage(host_batch)
+            with span("trainer.step"):
+                metrics = (self.steps.train_step(staged)
+                           if self._corpus is None
+                           else self.steps.train_step(self._corpus, staged))
             self.step += 1
             since_log += 1
             end = self.step == total
             if self.step % cfg.log_every == 0 or end:
-                self._sync()  # the clock reads finished work
-                dt = max(time.perf_counter() - t_log, 1e-9)
-                last = {k: v.float().cpu() for k, v in metrics.items()}
-                last["audio_sec_per_sec"] = since_log * audio_sec_per_batch / dt
-                last["steps_per_sec"] = since_log / dt
-                self.writer.write(self.step, last, "train")
+                with span("trainer.log"):
+                    self._sync()  # the clock reads finished work
+                    dt = max(time.perf_counter() - t_log, 1e-9)
+                    last = {k: v.float().cpu() for k, v in metrics.items()}
+                    last["audio_sec_per_sec"] = \
+                        since_log * audio_sec_per_batch / dt
+                    last["steps_per_sec"] = since_log / dt
+                    self.writer.write(self.step, last, "train")
                 t_log, since_log = time.perf_counter(), 0
             if self.val_batcher is not None and self.step % cfg.eval_every == 0:
-                self.writer.write(self.step, self.validate(), "val")
+                with span("trainer.validate"):
+                    self.writer.write(self.step, self.validate(), "val")
             saved = False
             if self.ckpt is not None and (
                     self.step % cfg.checkpoint_every == 0 or end):
-                self._save()
+                with span("trainer.checkpoint"):
+                    self._save()
                 saved = True
             preempted = self.preempted
             if multihost.active(self.mesh):
-                preempted = multihost.any_true(preempted, self.mesh)
+                with span("trainer.agree"):
+                    preempted = multihost.any_true(preempted, self.mesh)
             if preempted:
                 if self.ckpt is not None and not saved:
-                    self._save()
+                    with span("trainer.checkpoint"):
+                        self._save()
                 self.writer.write(self.step, {"preempted": 1.0, **last},
                                   "train")
                 break

@@ -1,3 +1,3 @@
-"""Tools around the PyTorch port's training: step timing, profiler traces
-and nan-debug (`profiling`), and fp32 without TF32 on the card
-(`precision`)."""
+"""Tools around the PyTorch port's training: profiler traces, the
+program's host spans and nan-debug (`profiling`), and fp32 without TF32 on
+the card (`precision`)."""

@@ -1,16 +1,26 @@
-"""Step timing, profiler traces and the numerics debug switch.
+"""Profiler traces, the program's host spans and the numerics debug switch.
 
-Port of `cpc_tpu/utils/profiling.py`:
+Port of `cpc_tpu/utils/profiling.py`, with spans of its own:
 
   * `sync(x)` waits for x's device and returns a float fetched from it,
     so a clock read after it sees finished work.
+  * `span(name)` marks a phase of the trainer or the step on the host
+    (`train/trainer.py`, `train/train_step.py`: `trainer.feed`,
+    `step.forward`, `step.optimizer`, ...). While no one records, it
+    returns one shared no-op object: no allocation and no clock read.
+    Between `record_spans()` and `take_spans()` each closed span is kept
+    in memory as (start_ns, end_ns, name, thread id) on `time.time_ns`,
+    the wall clock that a `torch.profiler` trace's `baseTimeNanoseconds`
+    places its own timestamps on; a span still open at `take_spans()` is
+    dropped. The thread id is the system's (`threading.get_native_id`),
+    as the profiler's trace names threads, read once a thread: it is a
+    system call, which costs microseconds where system calls are trapped.
   * `trace(log_dir)` records a `torch.profiler` region (CPU, and CUDA where
     there is a GPU) and writes its Chrome trace under `log_dir`, which
-    TensorBoard's profile plugin and chrome://tracing read. Unlike the JAX
-    package, a profiler that fails to start or to write raises.
-  * `StepTimer` keeps wall-clock step times with a device sync at each
-    tick: `summary()` -> steps, mean_ms, p50_ms, p95_ms and, given the
-    audio seconds a batch, audio_sec_per_sec.
+    TensorBoard's profile plugin and chrome://tracing read, with the
+    program's spans of the region as complete events of category
+    `program_span`. Unlike the JAX package, a profiler that fails to start
+    or to write raises.
   * `enable_nan_debug()` turns on autograd's anomaly mode, the counterpart
     of `jax_debug_nans`: a backward function that returns NaN raises with
     the forward's traceback, and the training step (`train.train_step`)
@@ -21,12 +31,20 @@ Port of `cpc_tpu/utils/profiling.py`:
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import threading
 import time
-from typing import Optional
+from typing import List, Optional, Tuple
 
-import numpy as np
 import torch
+
+#: a closed span: (start_ns, end_ns, name, thread id)
+Span = Tuple[int, int, str, int]
+SPAN_CATEGORY = "program_span"
+
+_spans: Optional[List[Span]] = None  # the recording's list, None when off
+_thread = threading.local()
 
 
 def sync(x) -> float:
@@ -39,61 +57,104 @@ def sync(x) -> float:
     return float(x.detach().float().sum())
 
 
+class _Off:
+    """The span of a process that records none."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "into", "start")
+
+    def __init__(self, name: str, into: List[Span]):
+        self.name, self.into = name, into
+
+    def __enter__(self):
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.time_ns()
+        if self.into is _spans:  # else its recording stopped while open
+            self.into.append((self.start, end, self.name, _native_id()))
+        return False
+
+
+def _native_id() -> int:
+    try:
+        return _thread.id
+    except AttributeError:
+        _thread.id = threading.get_native_id()
+        return _thread.id
+
+
+def span(name: str):
+    """A context manager around one phase named `name`."""
+    if _spans is None:
+        return _OFF
+    return _Span(name, _spans)
+
+
+def record_spans() -> None:
+    """Starts keeping the spans that open from now on."""
+    global _spans
+    if _spans is not None:
+        raise RuntimeError("the program's spans are already being recorded")
+    _spans = []
+
+
+def take_spans() -> List[Span]:
+    """Stops recording; the spans closed since `record_spans()`, by start
+    (an enclosing span before those it holds)."""
+    global _spans
+    if _spans is None:
+        raise RuntimeError("the program's spans are not being recorded")
+    got, _spans = _spans, None
+    return sorted(got, key=lambda s: (s[0], -s[1]))
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """A torch.profiler region; its Chrome trace goes to
-    `<log_dir>/trace.json` when the region ends."""
+    """A torch.profiler region; its Chrome trace, with the program's spans
+    of the region, goes to `<log_dir>/trace.json` when the region ends."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, "trace.json")
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
+    record_spans()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            yield prof
+    finally:
+        spans = take_spans()
     prof.export_chrome_trace(path)
     if not os.path.getsize(path):
         raise RuntimeError(f"the profiler wrote an empty trace to {path}")
+    _add_spans(path, spans)
 
 
-class StepTimer:
-    """Wall-clock step timer with a device sync at each tick.
-
-    timer = StepTimer(audio_sec_per_batch); timer.start()
-    for ...: out = step(...); timer.tick(out["loss"])
-    timer.summary() -> {"steps", "mean_ms", "p50_ms", "p95_ms",
-                        "audio_sec_per_sec"}
-    The first `warmup` ticks are left out of the summary."""
-
-    def __init__(self, audio_sec_per_batch: Optional[float] = None,
-                 warmup: int = 2):
-        self.audio_sec_per_batch = audio_sec_per_batch
-        self.warmup = warmup
-        self._times = []
-        self._last = None
-
-    def start(self) -> None:
-        self._last = time.perf_counter()
-
-    def tick(self, sync_on) -> float:
-        sync(sync_on)
-        now = time.perf_counter()
-        dt = now - self._last if self._last is not None else 0.0
-        self._last = now
-        self._times.append(dt)
-        return dt
-
-    def summary(self) -> dict:
-        ts = np.asarray(self._times[self.warmup:] or self._times)
-        out = {
-            "steps": int(len(ts)),
-            "mean_ms": float(ts.mean() * 1e3),
-            "p50_ms": float(np.percentile(ts, 50) * 1e3),
-            "p95_ms": float(np.percentile(ts, 95) * 1e3),
-        }
-        if self.audio_sec_per_batch:
-            out["audio_sec_per_sec"] = float(
-                self.audio_sec_per_batch / max(ts.mean(), 1e-9))
-        return out
+def _add_spans(path: str, spans: List[Span]) -> None:
+    """Writes `spans` into the Chrome trace at `path` as complete events,
+    in its microseconds from its `baseTimeNanoseconds`."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc["baseTimeNanoseconds"])
+    pid = os.getpid()
+    doc["traceEvents"].extend(
+        {"ph": "X", "cat": SPAN_CATEGORY, "name": name, "pid": pid,
+         "tid": tid, "ts": (a - base) / 1e3, "dur": (b - a) / 1e3}
+        for a, b, name, tid in spans)
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def enable_nan_debug(enable: bool = True) -> None:

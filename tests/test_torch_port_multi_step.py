@@ -7,7 +7,8 @@ the model, bit for bit (rtol = atol = 0) in the parameters, Adam's moments,
 the count and the loss, over two calls (the second reads the next rows of
 the scalar table and re-seeds the generators): accum 1 and 2, a
 transformer whose clip fires under warmup, augmentation, dropout, remat,
-the all-steps loss and AdamW with a cosine schedule. Against the JAX
+the all-steps loss and AdamW with a cosine schedule; and so while the
+program's host spans record (`utils.profiling.record_spans`). Against the JAX
 package's `make_multi_step` from the same weights (`from_jax_params`) at
 `jax.default_matmul_precision('highest')`: the loss within
 `test_torch_port_train_step.py`'s TOL["float32"], the parameters within
@@ -16,7 +17,7 @@ can flip, 1e-6 else). The refusals (ValueError), the optimizer and the
 whole multi-step with `Tensor.__bool__` and `.item` made to raise (no host
 read), and a checkpoint taken after a call resuming to the straight run.
 Marked `cuda` and skipped without a GPU: the same comparisons through the
-graph, bit for bit.
+graph, bit for bit, also with the spans recording through the capture.
 
 jax is imported inside the JAX comparison only, so that the `cuda` tests
 run where jax is not installed:
@@ -38,6 +39,7 @@ from cpc_tpu_torch.train.checkpoint import CheckpointManager
 from cpc_tpu_torch.train.train_step import (Optimizer, global_norm,
                                             init_state, make_multi_step,
                                             make_step_fns)
+from cpc_tpu_torch.utils.profiling import record_spans, take_spans
 
 N = 3
 TINY_SETS = ["model.encoder.channels=16,16,16,16,16", "model.encoder.d_enc=16",
@@ -127,6 +129,24 @@ def test_multi_equals_sequential_steps(case):
     norms = _multi_against_eager(cfg)
     if case == "transformer_clip_warmup":
         assert max(norms) > cfg.train.grad_clip_norm  # the clip fired
+
+
+def _multi_against_eager_recording(cfg, device="cpu"):
+    """`_multi_against_eager` with the program's spans recording; the
+    spans' names."""
+    record_spans()
+    try:
+        _multi_against_eager(cfg, device)
+    finally:
+        names = {s[2] for s in take_spans()}
+    return names
+
+
+@pytest.mark.parametrize("case", ["accum2", "transformer_clip_warmup"])
+def test_multi_equals_sequential_steps_while_spans_record(case):
+    names = _multi_against_eager_recording(_cfg(*CASES[case]))
+    assert {"step.forward", "step.backward", "step.optimizer",
+            "step.scalars"} <= names
 
 
 @pytest.mark.parametrize("accum", [1, 2])
@@ -343,6 +363,15 @@ def test_multi_equals_sequential_steps_on_the_card(case):
     _need_cuda()
     preset, sets = CASES[case]
     _multi_against_eager(_cfg(preset, sets), device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["accum2", "transformer_clip_warmup"])
+def test_multi_equals_sequential_steps_on_the_card_while_spans_record(case):
+    _need_cuda()
+    names = _multi_against_eager_recording(_cfg(*CASES[case]),
+                                           device="cuda")
+    assert "step.optimizer" in names
 
 
 @pytest.mark.cuda

@@ -5,8 +5,7 @@ the Trainer), on-device augmentation (by distribution on a seeded
 generator, its order against numpy given the same draws, the dropout
 stream untouched by it), a `--packed --augment --device-corpus` CLI run
 resumed bit for bit, TensorBoard's own reader on the event file,
-`StepTimer`, `--nan-debug`, `--profile`, and the CLI's options against the
-JAX CLI's.
+`--nan-debug`, `--profile`, and the CLI's options against the JAX CLI's.
 
 The augmentation's draws come from `torch.Generator`, so they cannot equal
 `jax.random`'s: its ranges and rates are held by distribution (4 096 rows:
@@ -40,7 +39,7 @@ from cpc_tpu_torch.train.train_step import (augment_generator,
                                             dropout_generator, init_state,
                                             make_step_fns)
 from cpc_tpu_torch.train.trainer import Trainer
-from cpc_tpu_torch.utils.profiling import StepTimer, enable_nan_debug
+from cpc_tpu_torch.utils.profiling import enable_nan_debug
 
 TINY_SETS = ["model.encoder.channels=16,16,16,16,16", "model.encoder.d_enc=16",
              "model.ar.d_ar=16", "model.loss.prediction_steps=3",
@@ -377,17 +376,6 @@ def test_augment_device_corpus_cli_resumes_bit_for_bit(corpus, tmp_path):
             v = (r["acc"][int(key.split("_")[1]) - 1]
                  if key.startswith("acc_") and key != "acc_mean" else r[key])
             assert e.value == np.float32(v), (tag, e.value, v)
-
-
-def test_step_timer_keys():
-    timer = StepTimer(audio_sec_per_batch=2.0, warmup=1)
-    timer.start()
-    for _ in range(4):
-        timer.tick({"loss": torch.ones(2)})
-    s = timer.summary()
-    assert list(s) == ["steps", "mean_ms", "p50_ms", "p95_ms",
-                       "audio_sec_per_sec"]
-    assert s["steps"] == 3 and s["audio_sec_per_sec"] > 0
 
 
 def test_nan_debug_raises_on_an_injected_nan(corpus, tmp_path):
