@@ -303,7 +303,19 @@ Phases, in order; any failure exits non-zero:
    the device's idle share over one replay and over N eager steps
    (torch.profiler).
 
-With `--multi-step` it runs phases 1, 2 and 29 alone. With `--dp-cards N`
+30. the optimizer's kernel pair (`ops/adam_cuda.py`,
+   `csrc/adam_multi.cu`) at the leaves of `tpu_fast` (15, no clip) and
+   `transformer_fast` (48, clip 1.0): every leaf fused, within 1e-5 of the
+   tensor code; a step's sum of squares, norm and update (as `_train_step`
+   calls them, the scalars' row already on the card) against the tensor
+   code as the step ran it before (the norm taken twice under the clip)
+   and Adam in `torch._foreach_*` calls (the yardstick): the card's ms
+   over a CUDA-graph replay, the eager ms between CUDA events, the host's
+   ms a step, the launches, and the bound (28 bytes a parameter for the
+   update, 4 for the sum, over 3.35 TB/s).
+
+With `--multi-step` it runs phases 1, 2 and 29 alone; with `--adam`
+phases 1, 2 and 30. With `--dp-cards N`
 it runs data parallelism across N cards under NCCL instead, what one card
 cannot run, `make_multi_step` on the N cards among it
 (`dp_cards_main`); with `--cp-cards N`
@@ -372,8 +384,8 @@ from cpc_tpu_torch.eval.cli import load_weights
 from cpc_tpu_torch.eval.streaming import (StreamingExtractor,
                                           portable_stream_model)
 from cpc_tpu_torch.models.transformer import carry_decode_model, decode_carry
-from cpc_tpu_torch.ops import (_build, attention_cuda, gru_cuda, infonce_cuda,
-                               infonce_fused)
+from cpc_tpu_torch.ops import (_build, adam_cuda, attention_cuda, gru_cuda,
+                               infonce_cuda, infonce_fused)
 from cpc_tpu_torch.ops.attention_cuda import (
     _FlashPlain, attention_route, flash_attention_backward,
     flash_attention_backward_reference, flash_attention_dkv,
@@ -417,8 +429,8 @@ from cpc_tpu_torch.train import train_step as train_step_module
 from cpc_tpu_torch.train.checkpoint import CheckpointManager
 from cpc_tpu_torch.train.metrics import masked_crc32c
 from cpc_tpu_torch.train.supervisor import latest_checkpoint_step
-from cpc_tpu_torch.train.train_step import (global_norm, init_state,
-                                            make_step_fns)
+from cpc_tpu_torch.train.train_step import (Optimizer, global_norm,
+                                            init_state, make_step_fns)
 from cpc_tpu_torch.train.trainer import Trainer
 from cpc_tpu_torch.utils.precision import fp32_exact
 from cpc_tpu_torch.utils.profiling import enable_nan_debug
@@ -918,6 +930,13 @@ COUNTED = {"gru_scan": gru_scan, "gru_scan_backward": gru_scan_backward,
            "flash_attention_dq": flash_attention_dq,
            "flash_attention_dkv": flash_attention_dkv,
            "conv_pyramid_forward": conv_pyramid_forward}
+# the optimizer's kernels (ops/adam_cuda.py), launched by every training
+# step: train_cli_run checks them once a step (one launch of the leaf table
+# at every preset), phase 30 times them. Apart from COUNTED, whose phases
+# compare a forward's or a model step's kernels alone
+OPT_COUNTED = {"adam_multi_sumsq": adam_cuda.adam_multi_sumsq,
+               "adam_multi_norm": adam_cuda.adam_multi_norm,
+               "adam_multi_update": adam_cuda.adam_multi_update}
 GRU_KERNELS = ("gru_scan", "gru_scan_backward")
 HEADS_KERNELS = ("heads_nll_forward", "heads_nll_backward")
 ATTN_KERNELS = ("flash_attention_forward", "flash_attention_backward",
@@ -949,8 +968,10 @@ def train_cli_run(label: str, config: str, extra, steps: int,
     steps on `data` with the arguments `extra`, every count set to 0 just
     before, in `workdir` (else a temporary one). Checks the metrics, the
     checkpoint and every kernel's launch count: per_step[name] per step, 0
-    for a kernel it does not name. Returns the counts."""
-    for fn in COUNTED.values():
+    for a kernel it does not name, 1 for the optimizer's (OPT_COUNTED)
+    unless it names them. Returns the counts."""
+    per_step = {**dict.fromkeys(OPT_COUNTED, 1), **per_step}
+    for fn in (*COUNTED.values(), *OPT_COUNTED.values()):
         fn.launches = 0
     with (contextlib.nullcontext(workdir) if workdir
           else tempfile.TemporaryDirectory()) as workdir:
@@ -959,7 +980,8 @@ def train_cli_run(label: str, config: str, extra, steps: int,
                              "--steps", str(steps), "--workdir", workdir,
                              *extra])
         wall = time.perf_counter() - t0
-        counts = {k: fn.launches for k, fn in COUNTED.items()}
+        counts = {k: fn.launches
+                  for k, fn in {**COUNTED, **OPT_COUNTED}.items()}
         check(rc == 0, f"train cli returned {rc}")
         with open(os.path.join(workdir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
@@ -3983,9 +4005,9 @@ def one_step(cfg, mesh, batch, watched, timed_steps=0):
     seen = {}
     update = steps.optimizer.step
 
-    def spy(grads):
+    def spy(grads, *args, **kwargs):
         seen.update({k: grads[k].detach().float().cpu() for k in watched})
-        update(grads)
+        update(grads, *args, **kwargs)
     steps.optimizer.step = spy
     m = steps.train_step(batch)
     metrics = {k: v.float().cpu() for k, v in m.items()}
@@ -4325,7 +4347,7 @@ def a11_step(cfg, device, batch, watched):
     model = init_state(cfg, device)
     steps = make_step_fns(cfg, model)
     seen = {}
-    steps.optimizer.step = lambda grads: seen.update(
+    steps.optimizer.step = lambda grads, *_, **__: seen.update(
         {k: grads[k].detach().float().cpu() for k in watched})
     m = steps.train_step(batch.to(device))
     return ({"loss": m["loss"].float().cpu(), "acc": m["acc"].float().cpu(),
@@ -4575,9 +4597,9 @@ def tp_one_step(cfg, mesh, batch, watched, timed_steps=0):
     seen = {}
     update = steps.optimizer.step
 
-    def spy(grads):
+    def spy(grads, *args, **kwargs):
         seen.update({k: grads[k] for k in watched})
-        update(grads)
+        update(grads, *args, **kwargs)
     steps.optimizer.step = spy
     rows = batch[mesh.rows(len(batch))]
     m = steps.train_step(rows)
@@ -5304,8 +5326,215 @@ def multi_cards_rank_main(argv) -> None:
         multihost.shutdown()
 
 
-def multi_step_main() -> None:
-    """`chip_smoke.py --multi-step`: phases 1, 2 and 29 alone."""
+# ---------------------------------------------------------------- phase 30
+def adam_foreach(params, grads, mu, nu, opt, lr, bc1, bc2,
+                 norm=None) -> None:
+    """Adam with the optimizer's clip and AdamW terms in `torch._foreach_*`
+    calls, as torch.optim.Adam(foreach=True) would run it: phase 30's
+    library yardstick, timed beside the kernels, never used by the port.
+    The clip takes `norm` if given, else its own."""
+    if opt.clip > 0:
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
+        grads = torch._foreach_mul(grads, torch.clamp(opt.clip / norm,
+                                                      max=1.0))
+    torch._foreach_mul_(mu, opt.b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - opt.b1)
+    torch._foreach_mul_(nu, opt.b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - opt.b2)
+    den = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, opt.eps)
+    u = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(u, den)
+    if opt.weight_decay > 0:
+        torch._foreach_add_(u, params, alpha=opt.weight_decay)
+    torch._foreach_add_(params, u, alpha=-lr)
+
+
+def enqueue_ms(fn, calls=50) -> float:
+    """The host's ms a call over `calls` calls enqueued back to back, the
+    card synced before and after (the host leads while it is slower)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
+def launches_of(fn) -> int:
+    """Kernels that one call of fn launches (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.key.lower()
+               and "memset" not in e.key.lower())
+
+
+def opt_counts() -> dict:
+    return {k: fn.launches for k, fn in OPT_COUNTED.items()}
+
+
+def adam_kernels(opt, gs, row, plain, yard_lists, lr, bc1, bc2) -> dict:
+    """Each of the optimizer's kernels alone at `opt`'s leaves, timed over
+    a CUDA-graph replay, against the tensor code (`plain`, the same leaves)
+    and the foreach yardstick: {name: {max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by}}, the update given the tensor code's
+    norm on both sides."""
+    table, dev = opt.table, opt.device.index
+    n = sum(g.numel() for g in gs)
+    want = global_norm(gs)
+    got = table.norm(gs)  # also points the table at gs
+    norm_err = (got - want).abs().item()
+    # the update from one state on both sides, given the same norm
+    for mine, theirs in zip((plain.params, plain.mu, plain.nu),
+                            (opt.params, opt.mu, opt.nu)):
+        for k, t in mine.items():
+            t.copy_(theirs[k])
+    grads = dict(zip(opt.params, gs))
+    opt.step(grads, row, norm=want)
+    plain.step(grads, row, norm=want)
+    torch.cuda.synchronize()
+    update_err = max(
+        (a[k] - b[k]).abs().max().item()
+        for a, b in zip((opt.params, opt.mu, opt.nu),
+                        (plain.params, plain.mu, plain.nu)) for k in a)
+    ys = yard_lists
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    out_norm = torch.empty((), dtype=torch.float32, device=opt.device)
+    runs = {
+        "adam_multi_sumsq": (
+            lambda: adam_cuda.adam_multi_sumsq(
+                table.lib, table.arrays[0], 0, table.partials, dev,
+                stream()),
+            lambda: global_norm(gs),
+            lambda: torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(gs))),
+            n * 4, norm_err),
+        "adam_multi_norm": (
+            lambda: adam_cuda.adam_multi_norm(
+                table.lib, table.partials, table.blocks, out_norm, dev,
+                stream()),
+            None, None, table.blocks * 4, norm_err),
+        "adam_multi_update": (
+            lambda: table.update(gs, row, want),
+            lambda: plain.step(grads, row, norm=want),
+            lambda: adam_foreach(ys[0], gs, ys[1], ys[2], opt, lr, bc1, bc2,
+                                 norm=want),
+            n * 28, update_err)}
+    out = {}
+    for name, (fn, plain_fn, lib_fn, nbytes, err) in runs.items():
+        out[name] = {
+            "max_abs_err": err,
+            "ms": cuda_ms(fn, reps=10, inner=10, graph=True),
+            "plain_ms": plain_fn and cuda_ms(plain_fn, reps=10, inner=10,
+                                             graph=True),
+            "library_ms": lib_fn and cuda_ms(lib_fn, reps=10, inner=10,
+                                             graph=True),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    return out
+
+
+def phase30_adam(card: str) -> dict:
+    """Phase 30: the optimizer's kernel pair against the tensor code and
+    the foreach yardstick at tpu_fast's and transformer_fast's leaves: a
+    whole step, then each kernel alone. Returns {preset: ...}, each
+    kernel's row under "kernels"."""
+    out = {}
+    for preset in ("tpu_fast", "transformer_fast"):
+        cfg = presets.by_name(preset)
+        model = CPCModel(cfg.model, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        grads = {k: torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+                 for k, p in params.items()}
+        fused, plain, yard = (
+            Optimizer({k: p.clone() for k, p in params.items()}, cfg.train)
+            for _ in range(3))
+        plain.table = None  # the tensor code, on the card
+        row = fused.scalars(1000)[0]  # past transformer_fast's warm-up
+        lr, bc1, bc2 = row.tolist()
+        gs = list(grads.values())
+        ys = [list(d.values()) for d in (yard.params, yard.mu, yard.nu)]
+
+        def fused_step():  # as `_train_step` calls it
+            fused.step(grads, row, norm=fused.norm(grads))
+
+        def plain_step():  # the step as it ran the tensor code before
+            global_norm(grads.values())
+            plain.step(grads, row)
+
+        def yard_step():
+            adam_foreach(ys[0], gs, ys[1], ys[2], yard, lr, bc1, bc2)
+
+        before = opt_counts()
+        for _ in range(3):
+            fused_step()
+            plain_step()
+        torch.cuda.synchronize()
+        each = {k: v - before[k] for k, v in opt_counts().items()}
+        check(each == dict.fromkeys(OPT_COUNTED, 3),
+              f"{preset}: 3 steps launched {each}")
+        gap = max(rel_err(fused.params[k], plain.params[k]) for k in params)
+        check(gap <= 1e-5, f"{preset}: fused against tensor code {gap:.2e}")
+        n = sum(p.numel() for p in params.values())
+        # the update's 28 bytes a parameter, and with the clip the sum of
+        # squares' 4: the norm has to be whole before the first parameter
+        # moves. Without the clip one pass over g could take both (28):
+        # the pair keeps the metric's norm a launch of its own, taken
+        # before the update as with the clip, so that nan-debug raises on
+        # it before the parameters take a NaN
+        per_param = 28 + 4 * (cfg.train.grad_clip_norm > 0)
+        bound_ms = n * per_param / HBM_BYTES_PER_S * 1e3
+        row_out = {"leaves": len(params), "params": n, "bound_ms": bound_ms,
+                   "bound_by": f"bytes ({per_param} a parameter)",
+                   "rel_err": gap}
+        for name, fn in (("fused", fused_step), ("tensor", plain_step),
+                         ("foreach", yard_step)):
+            row_out[name] = {
+                "graph_ms": cuda_ms(fn, reps=10, inner=10, graph=True),
+                "eager_ms": cuda_ms(fn, reps=10, inner=10),
+                "host_ms": enqueue_ms(fn), "launches": launches_of(fn)}
+        print(f"adam: {preset} ({len(params)} leaves, {n} parameters, "
+              f"clip {cfg.train.grad_clip_norm}) on {card}: "
+              + "; ".join(f"{k} card {v['graph_ms']:.4f} ms, eager "
+                          f"{v['eager_ms']:.4f}, host {v['host_ms']:.4f}, "
+                          f"{v['launches']} launches"
+                          for k, v in row_out.items() if isinstance(v, dict))
+              + f"; bound {bound_ms:.4f} ms ({per_param} bytes a "
+              f"parameter); fused against tensor code {gap:.2e}",
+              flush=True)
+        kernels = adam_kernels(fused, gs, row, plain, ys, lr, bc1, bc2)
+        for name, m in kernels.items():
+            print(f"adam: {preset} {name} alone {m['ms']:.4f} ms, bound "
+                  f"{m['bound_ms']:.6f} ms by {m['bound_by']}, tensor code "
+                  f"{m['plain_ms'] and round(m['plain_ms'], 4)} ms, foreach "
+                  f"{m['library_ms'] and round(m['library_ms'], 4)} ms "
+                  f"(yardstick only); error {m['max_abs_err']:.3e}",
+                  flush=True)
+        check(kernels["adam_multi_update"]["max_abs_err"] == 0.0,
+              f"{preset}: the update given the same norm differs from the "
+              f"tensor code by {kernels['adam_multi_update']['max_abs_err']}")
+        row_out["kernels"] = kernels
+        out[preset] = row_out
+    return out
+
+
+def one_phase_main(name: str, phase) -> None:
+    """Phases 1 and 2, then `phase(card)` alone, its result printed as a
+    JSON line under `name`: `--multi-step` (29), `--adam` (30)."""
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false; "
           "this script needs one CUDA GPU")
     card = subprocess.run(
@@ -5316,8 +5545,7 @@ def multi_step_main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.load_library()
-    launches = phase29_multi_step(card)
-    print(json.dumps({"multi_launches": launches}))
+    print(json.dumps({name: phase(card)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -5480,6 +5708,9 @@ def main() -> None:
     # steps, on the slice's presets, loss paths and features
     multi_launches = phase29_multi_step(card)
 
+    # 30. the optimizer's kernel pair at the presets' leaves
+    adam = phase30_adam(card)["tpu_fast"]["kernels"]
+
     sources = {
         "gru_scan": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:57"),
         "gru_scan_backward": ("gru_scan.cu", "cpc_tpu/ops/gru_pallas.py:82"),
@@ -5508,6 +5739,8 @@ def main() -> None:
                                  "cpc_tpu/ops/conv_pallas.py:99")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # the optimizer's kernels replace no pallas_call (optax's update is
+    # XLA's); their launches are phase 6's, their times tpu_fast's leaves
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"cpc_tpu_torch/csrc/{src}", "replaces": tpu,
@@ -5518,7 +5751,11 @@ def main() -> None:
         "cp_launches": cp_launches[name], "a11_launches": a11_launches[name],
         "tp_launches": tp_launches[name],
         "multi_launches": multi_launches[name]}
-        for name, (src, tpu) in sources.items()]}))
+        for name, (src, tpu) in sources.items()] + [{
+            "name": name, "route": "cuda",
+            "source": "cpc_tpu_torch/csrc/adam_multi.cu", "replaces": None,
+            "launches": counts[name], **{k: adam[name][k] for k in keys}}
+            for name in OPT_COUNTED]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -5544,6 +5781,8 @@ if __name__ == "__main__":
     elif "--multi-rank" in sys.argv:
         multi_cards_rank_main(sys.argv[1:])
     elif "--multi-step" in sys.argv:
-        multi_step_main()
+        one_phase_main("multi_launches", phase29_multi_step)
+    elif "--adam" in sys.argv:
+        one_phase_main("adam", phase30_adam)
     else:
         main()

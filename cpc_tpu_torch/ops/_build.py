@@ -116,6 +116,8 @@ def load_library() -> ctypes.CDLL:
     operand = [ptr, i64, i64, i64]  # a tensor and three of its strides
     attn_tail = [i32] * 4 + [ctypes.c_float] + [i32] * 3 + [ptr]
     plan = ctypes.POINTER(i32)  # a launch plan, ints
+    i64s = ctypes.POINTER(i64)  # a leaf table's addresses or counts
+    f32 = ctypes.c_float
     signatures = {
         "gru_scan_fwd": [ptr] * 5 + [i32] * 6 + [ptr],
         "gru_scan_bwd": [ptr] * 14 + [i32] * 7 + [ptr],
@@ -139,6 +141,10 @@ def load_library() -> ctypes.CDLL:
         "flash_attn_dkv": operand * 4 + [ptr] * 4 + attn_tail,
         "conv_pyramid_layer": [ptr] * 4 + [i32] * 9 + [plan, i32, i32, ptr],
         "conv_pyramid_fused": [ptr] * 6 + [i32] * 13 + [plan, i32, i32, ptr],
+        "adam_multi_sumsq": [i64s, i64s, plan, i32, i32, ptr, i32, ptr],
+        "adam_multi_norm": [ptr, i32, ptr, i32, ptr],
+        "adam_multi_update": [i64s] * 5 + [plan, i32, ptr, ptr] + [f32] * 7
+        + [i32] * 3 + [ptr],
     }
     for name, args in signatures.items():
         fn = getattr(lib, name)

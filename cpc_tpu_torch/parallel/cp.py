@@ -309,7 +309,7 @@ def make_cp_train_step(cfg: CPCConfig, model, mesh: ProcessMesh, *,
     from cpc_tpu_torch.train.train_step import (_checked_backward,
                                                 _nan_raise,
                                                 augment_generator,
-                                                global_norm, make_optimizer)
+                                                make_optimizer)
 
     check_cp_config(cfg)
     _check_model(model)
@@ -336,10 +336,10 @@ def make_cp_train_step(cfg: CPCConfig, model, mesh: ProcessMesh, *,
                 loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         grads = _summed({k: p.grad for k, p in params.items()}, world)
-        metrics["grad_norm"] = global_norm(grads.values())
+        metrics["grad_norm"] = opt.norm(grads)
         if nan_debug and not torch.isfinite(metrics["grad_norm"]):
             _nan_raise("gradient", opt.count + 1, "backward")
-        opt.step(grads)
+        opt.step(grads, norm=metrics["grad_norm"])
         return metrics
 
     if cfg.data.device_corpus:

@@ -49,7 +49,8 @@ attention through the model's `attn_impl`, head-local ('ring' and
 fuse_heads or ring say), as JAX's TP step computes it; gradients and
 metrics are averaged over 'data' alone, and grad_norm and the clip see
 the global norm: the sharded gradients' squares summed over 'model',
-each replicated one counted once (`global_norm`). The step has no
+each replicated one counted once (`global_norm`, taken once a step for
+both; on a card the update kernel clips by it). The step has no
 microbatching, augmentation or dropout (JAX's runs `train=False`), and
 `encoder.use_pallas` (one kernel for the whole pyramid) raises. An fp32
 model steps with TF32 off.
@@ -509,7 +510,7 @@ def make_tp_train_step(cfg: CPCConfig, model, mesh: ProcessMesh
         grads = dict(zip(names, means[:len(names)]))
         metrics = dict(zip(metrics, means[len(names):]))
         metrics["grad_norm"] = opt.norm(grads)
-        opt.step(grads)
+        opt.step(grads, norm=metrics["grad_norm"])
         return metrics
 
     return TPStepFns(train_step=train_step, optimizer=opt)

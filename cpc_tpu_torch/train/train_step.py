@@ -6,11 +6,10 @@ transformer), prediction heads, InfoNCE, backward, then Adam. PyTorch runs
 eagerly, so the step is a plain function; the parameters are updated in
 place, where the JAX step returns new ones.
 
-`make_optimizer` is optax's chain written out in tensor code, with optax's
-numerics (tests/test_torch_port_optim.py holds it against optax):
+`make_optimizer` is optax's chain with optax's numerics
+(tests/test_torch_port_optim.py holds it against optax):
   * [clip_by_global_norm(c)]: g unchanged when ||g|| < c, else (g / ||g||) c,
-    a select on the device (`torch.where`), so the host never waits for
-    the norm;
+    a select on the device, so the host never waits for the norm;
   * adam: mu, nu moments, bias correction 1 - b^count (in fp32) with count
     starting at 1, update mu_hat / (sqrt(nu_hat) + eps), eps outside the
     square root;
@@ -23,6 +22,16 @@ The count stays a host int (it is checkpointed); the host computes each
 update's lr and bias corrections from it (`Optimizer.scalars`) and sends
 them to the device as a row of fp32 tensors, which the update divides and
 multiplies by: the eager step and a CUDA graph of it compute the same bits.
+On a card the update is the kernel pair of `ops/adam_cuda.py`
+(`csrc/adam_multi.cu`): the global norm from one sum-of-squares launch and
+a finishing one, then one launch that clips and updates every leaf, in
+place of some 17 launches a leaf; given the same norm it equals the tensor
+code (`adam_multi_reference`) bit for bit. The path is the parameters'
+device: the CPU runs the tensor code, leaf by leaf, and a card refuses
+parameters or gradients that are not contiguous fp32 (the kernels' launch
+counts say how often they ran). The step takes the norm once: its
+grad_norm metric and the clip read the same tensor (`Optimizer.step`'s
+`norm`).
 
 `make_multi_step` chains N steps in one call (JAX's lax.scan over staged
 batches): on a card one CUDA-graph replay of the N steps, their optimizer
@@ -84,6 +93,7 @@ import torch.distributed as dist
 from cpc_tpu_torch.config import CPCConfig, TrainConfig
 from cpc_tpu_torch.data.loader import device_prepare
 from cpc_tpu_torch.models.cpc import CPCModel
+from cpc_tpu_torch.ops.adam_cuda import LeafTable, adam_multi_reference
 from cpc_tpu_torch.ops.dsp import augment_waveform
 from cpc_tpu_torch.ops.infonce import infonce_loss_and_metrics
 from cpc_tpu_torch.ops.infonce_fused import fused_heads_infonce
@@ -131,17 +141,22 @@ def global_norm(tensors) -> torch.Tensor:
 class Optimizer:
     """[clip_by_global_norm] -> Adam or AdamW -> -lr(count), over the fp32
     parameters `params` (name -> tensor), updated in place by `step`.
-    `norm(grads)` is the clip's global norm: `global_norm` of the values
-    (`parallel/tp.py` sets its own over shards). `step` reads nothing back
-    from the device: the clip is a select there, and the per-step scalars
-    are a row of `scalars`, so a CUDA graph can hold it
-    (`make_multi_step`)."""
+    `norm(grads)` is the clip's global norm: the sum-of-squares kernels on
+    a card, `global_norm` elsewhere (`parallel/tp.py` sets its own over
+    shards). A caller that took the norm for its metric passes it to `step`,
+    which clips by that tensor. `step` reads nothing back from the device:
+    the clip is a select there, and the per-step scalars are a row of
+    `scalars`, so a CUDA graph can hold it (`make_multi_step`).
+
+    The path is the parameters' device: on a card the kernel pair of
+    `ops/adam_cuda.py` (`LeafTable`, which raises on parameters, gradients
+    or scalars that are not contiguous fp32 on that card), elsewhere the
+    tensor code (`adam_multi_reference`)."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], t: TrainConfig):
         self.params = dict(params)
         self.device = next(iter(self.params.values())).device \
             if self.params else torch.device("cpu")
-        self.norm = lambda grads: global_norm(grads.values())
         self.schedule = make_schedule(t)
         self.b1, self.b2, self.eps = t.beta1, t.beta2, 1e-8
         self.weight_decay = t.weight_decay
@@ -149,6 +164,19 @@ class Optimizer:
         self.count = 0
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        self.table = LeafTable(self.params.values(), self.mu.values(),
+                               self.nu.values(), **self._hyper()) \
+            if self.device.type == "cuda" else None
+        self.norm = self._norm
+
+    def _hyper(self) -> Dict[str, float]:
+        return {"b1": self.b1, "b2": self.b2, "eps": self.eps,
+                "clip": self.clip, "weight_decay": self.weight_decay}
+
+    def _norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        if self.table is None:
+            return global_norm(grads.values())
+        return self.table.norm([grads[k] for k in self.params])
 
     def scalars(self, count: int, n: int = 1) -> torch.Tensor:
         """(n, 3) fp32 on the parameters' device: row j holds the update at
@@ -169,27 +197,23 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads: Mapping[str, torch.Tensor],
-             scalars: Optional[torch.Tensor] = None) -> None:
+             scalars: Optional[torch.Tensor] = None,
+             norm: Optional[torch.Tensor] = None) -> None:
         """One update. `scalars` is its row of `scalars()` on the device
-        (a CUDA graph's table); by default the row of `count`. Every
-        division is by a device tensor, so the eager and the captured step
-        compute the same bits (a CUDA tensor divided by a Python scalar is
-        multiplied by its reciprocal instead)."""
+        (a CUDA graph's table); by default the row of `count`. `norm` is
+        the gradients' global norm if the caller took it, else the clip
+        takes `norm(grads)`."""
         if scalars is None:
             scalars = self.scalars(self.count)[0]
-        lr, bc1, bc2 = scalars.unbind()
-        if self.clip > 0:  # optax: select(norm < clip, g, (g / norm) clip)
+        if self.clip > 0 and norm is None:
             norm = self.norm(grads)
-            grads = {k: torch.where(norm < self.clip, g, g / norm * self.clip)
-                     for k, g in grads.items()}
-        for k, p in self.params.items():
-            g = grads[k]
-            mu = self.mu[k].mul_(self.b1).add_((1.0 - self.b1) * g)
-            nu = self.nu[k].mul_(self.b2).add_((1.0 - self.b2) * (g * g))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if self.weight_decay > 0:
-                u = u + self.weight_decay * p
-            p.sub_(lr * u)
+        gs = [grads[k] for k in self.params]
+        if self.table is None:
+            adam_multi_reference(self.params.values(), gs, self.mu.values(),
+                                 self.nu.values(), scalars, norm,
+                                 **self._hyper())
+        else:
+            self.table.update(gs, scalars, norm)
         self.count += 1
 
     def state_dict(self) -> Dict:
@@ -433,15 +457,10 @@ def make_step_fns(cfg: CPCConfig, model: CPCModel, mesh=None) -> StepFns:
             with span("step.average"):
                 grads, metrics = _averaged(grads, metrics, mesh)
         with span("step.optimizer"):
-            metrics["grad_norm"] = global_norm(grads.values())
+            metrics["grad_norm"] = opt.norm(grads)
             if nan_debug and not torch.isfinite(metrics["grad_norm"]):
                 _nan_raise("gradient", opt.count + 1, "backward")
-            # step(grads), the call that wrappers of the optimizer's step
-            # see, unless a graph passes its table's row
-            if scalars is None:
-                opt.step(grads)
-            else:
-                opt.step(grads, scalars)
+            opt.step(grads, scalars, norm=metrics["grad_norm"])
         return metrics
 
     @torch.no_grad()

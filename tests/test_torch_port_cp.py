@@ -408,9 +408,9 @@ def _step(cfg, model, mesh, batch):
     seen = {}
     update = steps.optimizer.step
 
-    def spy(grads):
+    def spy(grads, *args, **kwargs):
         seen.update({k: g.detach().clone() for k, g in grads.items()})
-        update(grads)
+        update(grads, *args, **kwargs)
     steps.optimizer.step = spy
     m = steps.train_step(batch)
     return {k: v.numpy() for k, v in m.items()}, seen

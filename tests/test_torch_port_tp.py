@@ -208,9 +208,9 @@ def _port_tp(cfg, shape, state, batch):
             step = tp.make_tp_train_step(cfg, model, mesh)
         seen, update = {}, step.optimizer.step
 
-        def spy(grads):
+        def spy(grads, *args, **kwargs):
             seen.update(grads)
-            update(grads)
+            update(grads, *args, **kwargs)
         step.optimizer.step = spy
         rows = torch.from_numpy(batch[mesh.rows(len(batch))])
         metrics = step.train_step(rows)
